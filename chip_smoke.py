@@ -1,30 +1,40 @@
 #!/usr/bin/env python3
-"""Drive the port's main path on one CUDA card and hold its kernels against
+"""Drive the port's main paths on one CUDA card and hold its kernels against
 their plain PyTorch versions.
 
     python3 chip_smoke.py
 
 Phases (each fails loudly with a non-zero exit):
   1. print the card's name and power limit (nvidia-smi); no card -> exit 1;
-  2. build the CUDA kernels from lidarseg3d_torch/csrc into
+  2. build the four CUDA kernels from lidarseg3d_torch/csrc into
      lidarseg3d_torch/build (one nvcc per source, in parallel);
-  3. run the SemanticKITTI MSeg3D inference forward (UNetSCN3D r=2,
-     HRNet-w18, fusion head; seeded random weights) on three distinct
-     synthetic scans (V=131072, N=122880, one 384x1280 camera) through
-     build_detector / forward / predict, check the outputs and that every
-     kernel's launch count rose by its per-forward count; compare a small
-     model on the card with the same model on the CPU (plain versions);
-     time scans and the branch split;
-  4. hold each kernel against its plain version on the card at the main
-     path's shapes (rulebooks taken from a real synthetic scan at
-     V=131072): the rulebook conv in fp32 and bf16, the rank-table lookup
-     and pack exactly, on the 1,387,008-cell stage-1 table and on a
-     92,865,984-cell table (41x1504x1506, the 0.1 m SemanticKITTI grid);
-     times are CUDA-event means of back-to-back calls after warm-up, and
-     device-only means (the profiler's summed kernel durations);
-  5. profile one scan (device busy share and the kernels that take the
-     time); print the card line, one JSON line of the kernels, then the
-     result line.
+  3. semkitti: the SemanticKITTI MSeg3D inference forward (UNetSCN3D r=2,
+     HRNet-w18 and the FCN head in fp32, fusion head; seeded random
+     weights) on three distinct synthetic scans (V=131072, N=122880, one
+     384x1280 camera, grid 21x256x256: rank tables only) through
+     build_detector / forward / predict; check the outputs and that every
+     kernel's launch count rose by its per-forward count on this path;
+     compare a small model on the card with the same model on the CPU
+     (plain versions); time scans and the branch split;
+  3b. semnusc: the same for the nuScenes 6-camera forward (the JAX
+     package's bench.py:155-175: HRNet-w18 and the FCN head in bf16,
+     V=N=40960, six 640x960 cameras, 17 classes, 0.1 m grid 41x1024x1024
+     whose stages 1-2 take KeyTables and the merge lookup, and whose point
+     head devoxelizes on the sorted branch); also check the table kinds,
+     the small card-vs-CPU agreement on that grid (fp32 image branch) and
+     the bf16 image branch against an fp32 one with the same weights;
+  4. hold each kernel against its plain version on the card at each main
+     path's shapes, from a real scan of that path: the rulebook conv in
+     fp32 and bf16 (stage-1 subm, stage-1->2 strided, stage-4 subm), the
+     rank-table pack and lookup exactly (semkitti stage 1, semnusc stage
+     3), the merge lookup exactly (semnusc stages 1 and 2), and the pack,
+     lookup and merge on the 92,865,984-cell 0.1 m SemanticKITTI
+     structure (41x1504x1506); times are CUDA-event means of back-to-back
+     calls after warm-up, and device-only means (the profiler's summed
+     kernel durations);
+  5. profile one scan of each path (device busy share and the kernels
+     that take the time); print the card line, one JSON line of the
+     kernels, then the result line.
 """
 
 import json
@@ -35,18 +45,58 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-V, N, IMG_HW = 131072, 122880, (384, 1280)
+DEV = "cuda"
 NSCANS = 3
-PER_FORWARD = {"rulebook_conv": 36, "rank_lookup": 11, "rank_pack": 4}
+BIG_GRID = (41, 1504, 1504)  # the 0.1 m SemanticKITTI grid (Z, Y, X)
 # H100 SXM published peaks (NVIDIA's data sheet, dense, at 700 W): HBM
 # bytes/s and FLOP/s per input type
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
 TOL_CONV = {"fp32": 1e-5, "bf16": 2.0 ** -7}  # max |err| / max |plain|
+TOL_BF16_BRANCH = 0.1  # max |err| / max |fp32|, tests/_bf16_test_body.py
+IMG_KEYS = ("image_features", "image_logits", "camera_semantic_embeddings")
+
+
+def main_paths():
+    """The two main paths: model config, shapes, the table kind of each
+    stage, and each kernel's launches per forward (read from the dispatch:
+    10 rulebook builds + the point head)."""
+    from lidarseg3d_torch import synthetic as syn
+
+    nu = syn.SEMNUSC
+    return {
+        "semkitti": dict(
+            cfg=dict(ratio=2), V=131072, N=122880, img_hw=(384, 1280),
+            ncam=1, ncls=20, pcr=None, vsz=None, tables=("rank",) * 4,
+            # head: rulebook reuse, one own-cell rank lookup
+            per_forward={"rulebook_conv": 36, "rank_lookup": 11,
+                         "rank_pack": 4, "merge_lookup": 0}),
+        "semnusc": dict(
+            cfg=dict(ratio=2, num_class=nu["num_class"], img_bf16=True,
+                     pcr=nu["pcr"], vsz=nu["vsz"]),
+            V=nu["V"], N=nu["N"], img_hw=nu["img_hw"], ncam=nu["ncam"],
+            ncls=nu["num_class"], pcr=nu["pcr"], vsz=nu["vsz"],
+            tables=("keys", "keys", "rank", "rank"),
+            # merges: t1 subm1 down2, t2 subm2 inv2 down3, the sorted head;
+            # rank lookups: t3 subm3 inv3 down4, t4 subm4 inv4
+            per_forward={"rulebook_conv": 36, "rank_lookup": 5,
+                         "rank_pack": 2, "merge_lookup": 6}),
+    }
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def wrappers():
+    """The kernel wrappers by kernel name; each counts its launches."""
+    from lidarseg3d_torch.ops.merge_lookup import merge_cells
+    from lidarseg3d_torch.ops.rank_lookup import gather_cells
+    from lidarseg3d_torch.ops.rank_pack import pack_rank_table
+    from lidarseg3d_torch.ops.rulebook_conv import rulebook_conv
+
+    return {"rulebook_conv": rulebook_conv, "rank_lookup": gather_cells,
+            "rank_pack": pack_rank_table, "merge_lookup": merge_cells}
 
 
 def cuda_time(fn, reps=20, warmup=3):
@@ -75,16 +125,20 @@ def device_ms(fn, reps=10):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kern:
-        raise SystemExit("profiler recorded no device activity")
-    return sum(e.time_range.end - e.time_range.start
-               for e in kern) / reps / 1e3
+    # a session now and then returns no device events at all (seen once in
+    # dozens of sessions on an H100): measure again, up to three sessions
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if kern:
+            return sum(e.time_range.end - e.time_range.start
+                       for e in kern) / reps / 1e3
+        log(f"  profiler session {attempt + 1} recorded no device activity")
+    raise SystemExit("profiler recorded no device activity in 3 sessions")
 
 
 def timings(fn, plain, library=None, plain_reps=20):
@@ -117,7 +171,7 @@ def check_conv(report, name, feats, rb, cin, cout, gen):
                                                     rulebook_conv_plain)
 
     K = rb.shape[0]
-    w32 = (torch.rand(K, cin, cout, generator=gen) * 2 - 1).cuda() \
+    w32 = (torch.rand(K, cin, cout, generator=gen) * 2 - 1).to(DEV) \
         / (K * cin) ** 0.5
     miss = feats.shape[0] * feats.shape[1]
     hit = rb != miss
@@ -190,6 +244,53 @@ def check_lookup(report, name, packed, cells):
     report.append(row)
 
 
+def check_merge(report, name, table, cells, packed=None):
+    """merge_lookup against merge_cells_plain, exactly (and, given the
+    RankTable of the same voxels, against its gather on the same cells).
+    For reference it also times torch.searchsorted(keys, cells,
+    right=True): a partial yardstick that gives the rank field only."""
+    import torch
+    from lidarseg3d_torch.ops.merge_lookup import (merge_cells,
+                                                   merge_cells_plain)
+    from lidarseg3d_torch.ops.rank_lookup import gather_cells_plain
+
+    keys, num = table.keys, table.num
+
+    def kern():
+        return merge_cells(keys, table.coarse, table.shift, num, cells)
+
+    got = kern()
+    want = merge_cells_plain(keys, num, cells)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise SystemExit(f"merge_lookup {name} differs from its plain "
+                         f"version at {int((got != want).sum())} queries")
+    if packed is not None and not torch.equal(
+            got, gather_cells_plain(packed, cells)):
+        raise SystemExit(f"merge_lookup {name} differs from the rank-table "
+                         "gather of the same voxels")
+    q = cells.numel()
+    flatq = cells.reshape(keys.shape[0], -1)  # B == 1: one row of queries
+    row = dict(
+        name=f"merge_lookup[{name}]", route="cuda",
+        source="lidarseg3d_torch/csrc/merge_lookup.cu",
+        replaces="lidarseg3d_tpu/ops/pallas_merge.py:77",
+        launches=None, max_abs_err=0.0,
+        bound_ms=(8.0 * q + 4.0 * keys.numel() + 4.0 * num.numel())
+        / PEAK_BYTES * 1e3,
+        bound_by="bytes",
+        **timings(kern, lambda: merge_cells_plain(keys, num, cells)))
+    partial = lambda: torch.searchsorted(keys, flatq, right=True)  # noqa
+    row["partial_searchsorted_ms"] = cuda_time(partial)
+    row["partial_searchsorted_device_ms"] = device_ms(partial)
+    log(f"  merge {name}: keys={int(num.sum())}/{keys.shape[1]} queries={q} "
+        f"exact{' (= rank gather)' if packed is not None else ''} "
+        f"{fmt_times(row)} partial searchsorted (rank only) "
+        f"ms={row['partial_searchsorted_ms']:.4f} (device "
+        f"{row['partial_searchsorted_device_ms']:.4f})")
+    report.append(row)
+
+
 def check_pack(report, name, act):
     import torch
     from lidarseg3d_torch.ops.rank_pack import (pack_rank_table,
@@ -215,8 +316,18 @@ def check_pack(report, name, act):
     report.append(row)
 
 
-def kernel_checks(model, ex):
-    """Phase 4: every kernel against its plain version at the main path's
+def subm_stream(books, i):
+    """The cells the lookup kernel of stage ``i`` receives for its subm
+    rulebook (clipped and, on a KeyTable, clamped per row)."""
+    from lidarseg3d_torch.ops import sparse as sp
+
+    t = books[f"t{i}"]
+    cells, inb = sp.rank3_query_cells(t, *sp.subm_queries(books[f"s{i}"]))
+    return sp.kernel_cells(t, cells, inb)
+
+
+def kernel_checks(runs):
+    """Phase 4: every kernel against its plain version at the main paths'
     shapes. Returns the report rows."""
     import torch
     from lidarseg3d_torch.ops import coords as co
@@ -226,21 +337,23 @@ def kernel_checks(model, ex):
     report = []
     gen = torch.Generator().manual_seed(1)
     with torch.inference_mode():
+        model, ex = runs["semkitti"]["model"], runs["semkitti"]["ex0"]
+        V = runs["semkitti"]["path"]["V"]
         st = model.lidar_input(ex)
         books = model.backbone_mod.structures(st.structure)
         s1, s4 = books["s1"], books["s4"]
-        log(f"  stage voxels: s1={int(s1.num_voxels[0])}/{s1.capacity} "
-            f"s2={int(books['s2'].num_voxels[0])} "
+        log(f"  semkitti stage voxels: s1={int(s1.num_voxels[0])}/"
+            f"{s1.capacity} s2={int(books['s2'].num_voxels[0])} "
             f"s3={int(books['s3'].num_voxels[0])} "
             f"s4={int(s4.num_voxels[0])}/{s4.capacity}")
 
         # conv at its main-path shapes
         check_conv(report, "subm V=131072", st.features, books["subm1"], 12,
                    32, gen)
-        f2 = torch.rand(1, s1.capacity, 32, generator=gen).cuda()
+        f2 = torch.rand(1, s1.capacity, 32, generator=gen).to(DEV)
         check_conv(report, "strided 131072->65536", f2, books["down2"], 32,
                    64, gen)
-        f4 = torch.rand(1, s4.capacity, 256, generator=gen).cuda()
+        f4 = torch.rand(1, s4.capacity, 256, generator=gen).to(DEV)
         check_conv(report, f"subm V={s4.capacity}", f4, books["subm4"], 256,
                    128, gen)
 
@@ -248,31 +361,66 @@ def kernel_checks(model, ex):
         act1 = co.activity(s1.coords, s1.num_voxels, s1.spatial_shape)
         check_pack(report, "stage-1 1387008 cells",
                    act1[0, :act1.shape[1] - 1])
-        cells, _ = sp.rank3_query_cells(books["t1"], *sp.subm_queries(s1))
-        check_lookup(report, "stage-1 1387008 cells",
-                     books["t1"].packed, cells.contiguous())
+        check_lookup(report, "stage-1 1387008 cells", books["t1"].packed,
+                     subm_stream(books, 1))
+
+        # semnusc: the conv, lookup and pack at their shapes on that path,
+        # and the merge lookup on its KeyTable stages, from a real scan
+        nmodel, nex = runs["semnusc"]["model"], runs["semnusc"]["ex0"]
+        nst = nmodel.lidar_input(nex)
+        nbooks = nmodel.backbone_mod.structures(nst.structure)
+        ns1, ns4 = nbooks["s1"], nbooks["s4"]
+        log(f"  semnusc stage voxels: " + " ".join(
+            f"s{i}={int(nbooks[f's{i}'].num_voxels[0])}/"
+            f"{nbooks[f's{i}'].capacity}" for i in range(1, 5)))
+        check_conv(report, f"semnusc subm V={ns1.capacity}", nst.features,
+                   nbooks["subm1"], 12, 32, gen)
+        nf2 = torch.rand(1, ns1.capacity, 32, generator=gen).to(DEV)
+        check_conv(report, f"semnusc strided {ns1.capacity}->"
+                   f"{nbooks['s2'].capacity}", nf2, nbooks["down2"], 32, 64,
+                   gen)
+        nf4 = torch.rand(1, ns4.capacity, 256, generator=gen).to(DEV)
+        check_conv(report, f"semnusc subm V={ns4.capacity}", nf4,
+                   nbooks["subm4"], 256, 128, gen)
+        s3 = nbooks["s3"]
+        act3 = co.activity(s3.coords, s3.num_voxels, s3.spatial_shape)
+        nce3 = act3.shape[1] - 1
+        check_pack(report, f"semnusc stage-3 {nce3} cells", act3[0, :nce3])
+        check_lookup(report, f"semnusc stage-3 {nce3} cells",
+                     nbooks["t3"].packed, subm_stream(nbooks, 3))
+        for i in (1, 2):
+            Z, Y, X = nbooks[f"s{i}"].spatial_shape
+            check_merge(report, f"semnusc stage-{i} subm {Z * Y * (X + 2)} "
+                        "cells", nbooks[f"t{i}"], subm_stream(nbooks, i))
+        del nbooks, nst, nf2, nf4, act3
 
         # the 0.1 m SemanticKITTI grid: 41 x 1504 x (1504 + 2) cells, with
         # the scan's voxels spread over it key-sorted
-        Z, Y, X = 41, 1504, 1504
+        Z, Y, X = BIG_GRID
         nce = Z * Y * (X + 2)
         keys = torch.randperm(Z * Y * X, generator=gen)[:V].sort().values
         big = torch.stack([keys // (Y * X), (keys // X) % Y, keys % X],
-                          -1).to(torch.int32)[None].cuda()
-        nv = torch.tensor([V], dtype=torch.int32, device="cuda")
+                          -1).to(torch.int32)[None].to(DEV)
+        nv = torch.tensor([V], dtype=torch.int32, device=DEV)
         actb = co.activity(big, nv, (Z, Y, X))
         check_pack(report, f"{nce} cells", actb[0, :nce])
         sb = sp.build_structure(big, nv, (Z, Y, X))
         tb = co.RankTable(packed=pack_rank_table_plain(actb[0, :nce])[None],
                           spatial_shape=(Z, Y, X))
-        cells, _ = sp.rank3_query_cells(tb, *sp.subm_queries(sb))
-        check_lookup(report, f"{nce} cells", tb.packed, cells.contiguous())
-        del actb, tb, cells
+        del actb
+        cells, inb = sp.rank3_query_cells(tb, *sp.subm_queries(sb))
+        check_lookup(report, f"{nce} cells", tb.packed,
+                     sp.kernel_cells(tb, cells, inb))
+        kt = co.build_key_table(big, nv, (Z, Y, X))
+        check_merge(report, f"{nce} cells", kt, sp.kernel_cells(kt, cells,
+                                                                inb),
+                    packed=tb.packed)
+        del tb, kt, cells
     torch.cuda.empty_cache()
     return report
 
 
-def check_outputs(ret, pred, ncls):
+def check_outputs(ret, pred, N, ncls):
     import torch
 
     logits = ret["out_logits"]
@@ -290,74 +438,129 @@ def check_outputs(ret, pred, ncls):
             raise SystemExit(f"non-finite {k}")
 
 
-def small_agreement():
-    """The same small seeded model on the card and on the CPU (plain
+def small_agreement(p):
+    """The same small seeded model (ratio 1, small HRNet, fp32 image
+    branch) on the path's grid, on the card and on the CPU (plain
     versions of every kernel): logits and labels must agree."""
     import torch
     from lidarseg3d_torch import synthetic as syn
     from lidarseg3d_torch.models import build_detector
 
-    cfg = syn.mseg3d_model_cfg(ratio=1, small_hrnet=True)
-    b = syn.synthetic_mseg3d_batch(1, 4096, 4096, img_hw=(64, 128), seed=7)
+    cfg = syn.mseg3d_model_cfg(num_class=p["ncls"], ratio=1,
+                               small_hrnet=True, pcr=p["pcr"], vsz=p["vsz"])
+    b = syn.synthetic_mseg3d_batch(
+        1, 4096, 4096, img_hw=(64, 128) if p["ncam"] == 1 else (64, 96),
+        ncam=p["ncam"], seed=7, pcr=p["pcr"], vsz=p["vsz"])
     out = {}
-    for dev in ("cuda", "cpu"):
+    for dev in (DEV, "cpu"):
         m = build_detector(cfg, device=dev, seed=3)
-        ex = syn.example_to_device(b, dev, syn.grid_shape())
+        ex = syn.example_to_device(b, dev, syn.grid_shape(p["pcr"], p["vsz"]))
         ret, bat = m(ex)
         out[dev] = (ret["out_logits"].float().cpu(),
                     m.predict(ret, bat)["pred_point_sem_labels"].cpu())
-    err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
-    agree = float((out["cuda"][1] == out["cpu"][1]).float().mean())
+    err = float((out[DEV][0] - out["cpu"][0]).abs().max())
+    agree = float((out[DEV][1] == out["cpu"][1]).float().mean())
     log(f"  small model card vs CPU: max_abs_err(logits)={err:.3e} "
         f"labels agree {agree:.6f}")
     if err > 1e-3 or agree < 0.999:
         raise SystemExit("the small model on the card disagrees with the CPU")
 
 
-def main_path():
-    """Phase 3: the counted run over the distinct scans, then timing.
-    Returns (result, launches per kernel over the run, model, one example).
-    It runs before any profiler session: an initialised profiler adds host
-    time to every launch."""
+def bf16_branch_check(model, cfg, ex):
+    """The model's bf16 image branch against an fp32 HRNet + FCN head with
+    the same weights, on the same images: within 0.1 * max |fp32|."""
+    import torch
+    from lidarseg3d_torch.models import build_img_backbone, build_img_head
+
+    if model.img_backbone_mod.compute_dtype != torch.bfloat16 \
+            or model.img_head_mod.compute_dtype != torch.bfloat16:
+        raise SystemExit("the semnusc image branch is not bf16")
+    plain = {k: dict(cfg[k]) for k in ("img_backbone", "img_head")}
+    for c in plain.values():
+        c.pop("compute_dtype")
+    bb = build_img_backbone(plain["img_backbone"])
+    hd = build_img_head(plain["img_head"])
+    bb.load_state_dict(model.img_backbone_mod.state_dict())
+    hd.load_state_dict(model.img_head_mod.state_dict())
+    bb, hd = bb.to(DEV).eval(), hd.to(DEV).eval()
+    with torch.inference_mode():
+        got = model.image_branch(ex)
+        images = ex["images"]
+        B, ncam = images.shape[:2]
+        x = images.reshape(B * ncam, *images.shape[2:]).permute(0, 3, 1, 2)
+        want = hd(bb(x), batch_size=B)
+    for k in IMG_KEYS:
+        if got[k].dtype != torch.float32:
+            raise SystemExit(f"bf16 branch output {k} is {got[k].dtype}")
+        err = float((got[k] - want[k]).abs().max())
+        scale = float(want[k].abs().max())
+        log(f"  bf16 image branch vs fp32, same weights: {k} max_abs_err="
+            f"{err:.3e} (max|fp32|={scale:.3e}, tol {TOL_BF16_BRANCH} rel)")
+        if not err <= TOL_BF16_BRANCH * scale:
+            raise SystemExit(f"bf16 image branch {k} deviates: {err} > "
+                             f"{TOL_BF16_BRANCH}*{scale}")
+    del bb, hd
+    torch.cuda.empty_cache()
+
+
+def run_path(name, p):
+    """Phase 3 / 3b: one main path's counted run over the distinct scans,
+    its checks, then timing. Returns a dict with the result, the launches
+    per kernel over the counted run, the model and one example. It runs
+    before any profiler session: an initialised profiler adds host time
+    to every launch."""
     import torch
     from lidarseg3d_torch import synthetic as syn
     from lidarseg3d_torch.models import build_detector
-    from lidarseg3d_torch.ops.rank_lookup import gather_cells
-    from lidarseg3d_torch.ops.rank_pack import pack_rank_table
-    from lidarseg3d_torch.ops.rulebook_conv import rulebook_conv
+    from lidarseg3d_torch.ops import coords as co
 
-    wrappers = {"rulebook_conv": rulebook_conv, "rank_lookup": gather_cells,
-                "rank_pack": pack_rank_table}
-    ishape = syn.grid_shape()
-    cfg = syn.mseg3d_model_cfg(ratio=2)
-    model = build_detector(cfg, seed=0)
+    V, N = p["V"], p["N"]
+    ishape = syn.grid_shape(p["pcr"], p["vsz"])
+    cfg = syn.mseg3d_model_cfg(**p["cfg"])
+    model = build_detector(cfg, device=DEV, seed=0)
     t0 = time.perf_counter()
-    batches = [syn.synthetic_mseg3d_batch(1, V, N, img_hw=IMG_HW, seed=s)
+    batches = [syn.synthetic_mseg3d_batch(1, V, N, img_hw=p["img_hw"],
+                                          ncam=p["ncam"], seed=s,
+                                          pcr=p["pcr"], vsz=p["vsz"])
                for s in range(NSCANS)]
     log(f"  host: {NSCANS} scans voxelized in "
-        f"{time.perf_counter() - t0:.2f} s; voxels "
+        f"{time.perf_counter() - t0:.2f} s; grid {ishape}; voxels "
         f"{[int(b['num_voxels'][0]) for b in batches]}")
     coords = [b["coordinates"] for b in batches]
     if any((coords[i] == coords[j]).all() for i in range(NSCANS)
            for j in range(i)):
         raise SystemExit("synthetic scans share a coordinate set")
-    exs = [syn.example_to_device(b, "cuda", ishape) for b in batches]
+    exs = [syn.example_to_device(b, DEV, ishape) for b in batches]
 
-    small_agreement()
+    small_agreement(p)
 
-    for w in wrappers.values():
+    ws = wrappers()
+    for w in ws.values():
         w.launches = 0
     for ex in exs:
         ret, bat = model(ex)
-        check_outputs(ret, model.predict(ret, bat), 20)
+        check_outputs(ret, model.predict(ret, bat), N, p["ncls"])
     torch.cuda.synchronize()
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = {k: w.launches for k, w in ws.items()}
     log(f"  launches over {NSCANS} scans: {launches} (per forward "
-        f"{PER_FORWARD})")
+        f"{p['per_forward']})")
     for k, n in launches.items():
-        if n != NSCANS * PER_FORWARD[k]:
-            raise SystemExit(f"{k}: {n} launches, expected "
-                             f"{NSCANS * PER_FORWARD[k]}")
+        if n != NSCANS * p["per_forward"][k]:
+            raise SystemExit(f"{name}: {k}: {n} launches, expected "
+                             f"{NSCANS * p['per_forward'][k]}")
+
+    with torch.inference_mode():
+        books = model.backbone_mod.structures(
+            model.lidar_input(exs[0]).structure)
+    kinds = tuple("keys" if isinstance(books[f"t{i}"], co.KeyTable)
+                  else "rank" for i in range(1, 5))
+    log(f"  stage table kinds: {kinds}")
+    if kinds != p["tables"]:
+        raise SystemExit(f"{name}: table kinds {kinds}, expected "
+                         f"{p['tables']}")
+    del books
+    if p["cfg"].get("img_bf16"):
+        bf16_branch_check(model, cfg, exs[0])
 
     # per-scan latency: warm, then 3 rounds over the distinct scans
     ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
@@ -374,9 +577,10 @@ def main_path():
     times.sort()
     p50 = times[len(times) // 2]
     mean = sum(times) / len(times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  per-scan ms: p50 {p50:.2f}, mean {mean:.2f}, min {times[0]:.2f}, "
         f"max {times[-1]:.2f} -> {1000.0 / mean:.2f} scans/s; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{peak:.2f} GiB")
 
     # branch split, one scan at a time
     names = ["image", "vfe", "structures+rulebooks", "convs", "head+predict"]
@@ -404,8 +608,9 @@ def main_path():
     log("  split ms: " + ", ".join(f"{n} {t:.2f}"
                                    for n, t in zip(names, split)))
     result = dict(p50_ms=p50, mean_ms=mean, scans_per_s=1000.0 / mean,
-                  split_ms=dict(zip(names, split)))
-    return result, launches, model, exs[0]
+                  peak_memory_gib=peak, split_ms=dict(zip(names, split)))
+    return dict(result=result, launches=launches, model=model, ex0=exs[0],
+                path=p)
 
 
 def profile_scan(model, ex, top=12):
@@ -465,6 +670,7 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip()
     from lidarseg3d_torch.ops import cuda_build
 
+    t_start = time.perf_counter()
     log("phase 1: card")
     log(f"  {card}")
     log(f"  {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
@@ -476,15 +682,23 @@ def main():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    log("phase 3: main path")
-    result, launches, model, ex0 = main_path()
+    paths, runs = main_paths(), {}
+    for phase, name in (("3", "semkitti"), ("3b", "semnusc")):
+        log(f"phase {phase}: main path {name}")
+        runs[name] = run_path(name, paths[name])
     log("phase 4: kernels against their plain versions")
-    report = kernel_checks(model, ex0)
+    report = kernel_checks(runs)
     for row in report:
-        row["launches"] = launches[row["name"].split("[")[0]]
-    log("phase 5: profile of one scan")
-    result["device_busy_share"] = profile_scan(model, ex0)
-    log(json.dumps({"main_path": result}))
+        k = row["name"].split("[")[0]
+        by_path = {n: r["launches"][k] for n, r in runs.items()}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
+    log("phase 5: profile of one scan per path")
+    for name, r in runs.items():
+        log(f"  {name}:")
+        r["result"]["device_busy_share"] = profile_scan(r["model"], r["ex0"])
+    log(json.dumps({"main_path": {n: r["result"] for n, r in runs.items()},
+                    "seconds": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

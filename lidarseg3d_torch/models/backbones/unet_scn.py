@@ -3,7 +3,7 @@ lidarseg3d_tpu/models/backbones/unet_scn.py:25 UNetSCN3D).
 
 Residual encoder of four stride-2 stages, UR-block decoder with inverse
 convs back onto the stored structures, BN eps=1e-3 throughout. All
-structures, rank tables and rulebooks are built once per forward
+structures, lookup tables and rulebooks are built once per forward
 (``structures``) and shared by the convs (``convs``), spconv's indice_key
 semantics.
 """
@@ -58,8 +58,9 @@ class UNetSCN3D(nn.Module):
         self.SparseConvBNReLU_11 = cbr(c1, c1)
 
     def structures(self, s1: sp.SparseStructure):
-        """Stage structures, rank tables and the 10 rulebooks (4 subm,
-        3 strided, 3 inverse)."""
+        """Stage structures s1-s4, their lookup tables t1-t4 (RankTables or
+        KeyTables, as sparse.dense_table picks) and the 10 rulebooks
+        (4 subm, 3 strided, 3 inverse)."""
         V = s1.capacity
         caps, sites = self.caps, self.sites
         down = sp.downsample_structure
@@ -85,7 +86,7 @@ class UNetSCN3D(nn.Module):
         b["subm4"] = sp.build_subm_rulebook(s4, table=t4)
         b["inv4"] = sp.build_inverse_rulebook(s4, s3, 3, 2, (0, 1, 1),
                                               table=t4)
-        b.update(s2=s2, s3=s3, s4=s4)
+        b.update(s2=s2, s3=s3, s4=s4, t2=t2, t3=t3, t4=t4)
         return b
 
     def convs(self, st_in: sp.SparseTensor, b):

@@ -2,19 +2,31 @@
 lidarseg3d_tpu/models/img_backbones/hrnet.py:341 HRNet, plain layout).
 
 NCHW inside; stem (two stride-2 3x3), Bottleneck stage 1, multi-resolution
-parallel branches with full fusion. The JAX package's space-to-depth
+parallel branches with full fusion. ``compute_dtype="bfloat16"`` runs the
+branch in mixed precision as the JAX package does: the input and every
+activation in bf16, parameters kept in fp32 and cast at each conv, BN in
+fp32 and cast back (layers.MaskedBatchNorm). The JAX package's space-to-depth
 branch layout is TPU layout work with identical parameters, so the port
 computes the same convs in the plain layout. Submodule names follow the
 JAX package's Flax scopes (models/layers.py); HRModuleStack's nn.scan
 becomes a ModuleList ``scan.{i}``.
 """
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ...ops.resize import resize_bilinear
 from ..layers import MaskedBatchNorm, Scopes, add
 from ..registry import IMG_BACKBONES
+
+
+def conv_as_input(conv, x):
+    """Apply nn.Conv2d ``conv`` in x's dtype, its fp32 parameters cast at
+    the call (the JAX package's ``conv(dtype=x.dtype)``)."""
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride,
+                    conv.padding)
 
 
 class ConvBNReLU(nn.Module):
@@ -27,7 +39,7 @@ class ConvBNReLU(nn.Module):
         self.relu = relu
 
     def forward(self, x):
-        x = self.MaskedBatchNorm_0(self.Conv_0(x))
+        x = self.MaskedBatchNorm_0(conv_as_input(self.Conv_0, x))
         return F.relu(x) if self.relu else x
 
 
@@ -145,10 +157,8 @@ class HRNet(nn.Module):
                  frozen_stages=-1, pretrained=None, in_channels=3,
                  with_cp=False, compute_dtype=None, s2d_max_c=18):
         super().__init__()
-        if compute_dtype is not None:
-            raise NotImplementedError(
-                "a reduced-precision image branch is not ported yet "
-                "(ROADMAP.md); the port runs fp32")
+        self.compute_dtype = (None if compute_dtype is None
+                              else getattr(torch, compute_dtype))
         s = Scopes()
         stem = [add(self, s, ConvBNReLU(in_channels, 64, stride=2)),
                 add(self, s, ConvBNReLU(64, 64, stride=2))]
@@ -179,7 +189,10 @@ class HRNet(nn.Module):
             prev = list(chans)
 
     def forward(self, x):
-        """x: [N, 3, H, W] -> list of 4 NCHW maps (1/4 .. 1/32)."""
+        """x: [N, 3, H, W] -> list of 4 NCHW maps (1/4 .. 1/32), in
+        ``compute_dtype`` when one is set."""
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         for m in self.stem:
             x = m(x)
         for m in self.layer1:

@@ -3,14 +3,16 @@ lidarseg3d_tpu/models/img_heads/fcn_mseg3d_head.py:33 FCNMSeg3DHead).
 
 Resize-concat of the HRNet pyramid, num_convs 3x3 ConvBNReLUs, a 1x1
 classifier, and the camera semantic embeddings. Works in NCHW and returns
-the JAX package's NHWC layout.
+the JAX package's NHWC layout. With ``compute_dtype`` ("bfloat16") the
+inputs are cast and the convs run in that type; the three outputs are
+always fp32, as in the JAX package.
 """
 
 import torch
 from torch import nn
 
 from ...ops.resize import resize_bilinear
-from ..img_backbones.hrnet import ConvBNReLU
+from ..img_backbones.hrnet import ConvBNReLU, conv_as_input
 from ..layers import Scopes, add
 from ..registry import IMG_HEADS
 
@@ -35,10 +37,11 @@ class FCNMSeg3DHead(nn.Module):
                  norm_cfg=None, use_sc_conv=False, conv_seg_kernel=1,
                  compute_dtype=None):
         super().__init__()
-        if use_sc_conv or compute_dtype is not None \
-                or input_transform != "resize_concat":
+        if use_sc_conv or input_transform != "resize_concat":
             raise NotImplementedError(
-                "the port has the resize-concat fp32 FCN head only")
+                "the port has the resize-concat FCN head only")
+        self.compute_dtype = (None if compute_dtype is None
+                              else getattr(torch, compute_dtype))
         s = Scopes()
         self.in_index = tuple(in_index)
         cin = sum(in_channels[i] for i in self.in_index)
@@ -60,6 +63,8 @@ class FCNMSeg3DHead(nn.Module):
         Returns image_features [B*ncam, h, w, channels], image_logits
         [B*ncam, h, w, ncls] (NHWC) and camera_semantic_embeddings
         [B, ncls, channels]."""
+        if self.compute_dtype is not None:
+            inputs = [x.to(self.compute_dtype) for x in inputs]
         tgt = inputs[self.in_index[0]]
         ups = [tgt] + [resize_bilinear(inputs[i], tgt.shape[-2:])
                        for i in self.in_index[1:]]
@@ -69,9 +74,9 @@ class FCNMSeg3DHead(nn.Module):
             feats = m(feats)
         if self.concat:
             feats = self.concat[0](torch.cat([x, feats], dim=1))
-        logits = self.Conv_0(feats)
-        feats = feats.permute(0, 2, 3, 1).contiguous()
-        logits = logits.permute(0, 2, 3, 1).contiguous()
+        logits = conv_as_input(self.Conv_0, feats)
+        feats = feats.permute(0, 2, 3, 1).float().contiguous()
+        logits = logits.permute(0, 2, 3, 1).float().contiguous()
         return {
             "image_features": feats,
             "image_logits": logits,

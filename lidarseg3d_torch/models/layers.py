@@ -45,8 +45,9 @@ class TorchLinear(nn.Linear):
 class MaskedBatchNorm(nn.Module):
     """BatchNorm with the JAX package's parameters (scale, bias, running
     mean/var) on channel dim ``channel_dim``. Evaluation semantics only:
-    normalize with the running statistics. Training-mode statistics are
-    not ported yet (ROADMAP.md, training)."""
+    normalize with the running statistics, in fp32 for a bf16 input, and
+    return the input's dtype. Training-mode statistics are not ported yet
+    (ROADMAP.md, training)."""
 
     def __init__(self, num_features, eps=1e-5, channel_dim=-1):
         super().__init__()
@@ -65,8 +66,10 @@ class MaskedBatchNorm(nn.Module):
         shape = [1] * x.dim()
         shape[self.channel_dim] = -1
         inv = torch.rsqrt(self.running_var + self.eps)
-        return ((x - self.running_mean.view(shape)) * inv.view(shape)
-                * self.weight.view(shape) + self.bias.view(shape))
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))
+        y = ((xs - self.running_mean.view(shape)) * inv.view(shape)
+             * self.weight.view(shape) + self.bias.view(shape))
+        return y.to(x.dtype)
 
 
 class MLPHead(nn.Module):

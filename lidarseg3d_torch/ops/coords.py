@@ -1,5 +1,5 @@
-"""Voxel-coordinate rank tables (PyTorch port of the RankTable part of
-lidarseg3d_tpu/ops/coords.py).
+"""Voxel-coordinate lookup tables (PyTorch port of the RankTable and
+KeyTable parts of lidarseg3d_tpu/ops/coords.py).
 
 Layout convention: per-sample capacity padding, coords [B, V, 3] int32 in
 (z, y, x) order, invalid rows -1, valid rows a key-sorted prefix of length
@@ -97,3 +97,44 @@ def lookup_rank(table: RankTable, qcoords, extra_valid=None):
     v = gather_cells(table.packed, cell.to(torch.int32)[None].contiguous())[0]
     rank, _, a0, _ = rank_bits(v)
     return (rank - 1).to(torch.int32), inb & (a0 > 0)
+
+
+@dataclass
+class KeyTable:
+    """Sorted-keys lookup table: no dense per-cell storage.
+
+    keys are the voxels' cells on the X-EXTENDED grid (the RankTable's cell
+    space), ascending, with INVALID_KEY after ``num``; key-sorted voxel rows
+    make rank-1 the row of an active cell, as for a RankTable. The merge
+    lookup (ops/merge_lookup.py) answers a grouped query with the same
+    packed (rank, am, a0, ap) value a RankTable gather gives. The block
+    ranks ``coarse[b, j]`` = #{valid keys < j << shift} bracket each of
+    its searches. Unlike the JAX package, V is not padded to a multiple of
+    1024 (that was the TPU kernel's VMEM layout).
+    """
+
+    keys: torch.Tensor  # [B, V] int32
+    coarse: torch.Tensor  # [B, NB + 1] int32
+    num: torch.Tensor  # [B] int32
+    spatial_shape: tuple  # original (Z, Y, X)
+    shift: int = 12
+
+
+def build_key_table(coords, num_voxels, spatial_shape, shift=12):
+    """Build a KeyTable (see above); O(V + NCE >> shift)."""
+    B, V, _ = coords.shape
+    Z, Y, X = (int(s) for s in spatial_shape)
+    nce = Z * Y * (X + 2)
+    valid = valid_rows(num_voxels, V)
+    cell = extended_cells(coords, spatial_shape)
+    keys = torch.where(valid, cell, INVALID_KEY).to(torch.int32)
+    nb = (nce >> shift) + 2
+    blk = torch.where(valid, cell >> shift, nb).to(torch.int64)
+    hist = torch.zeros(B, nb + 1, dtype=torch.int32, device=coords.device)
+    hist.scatter_add_(1, blk, torch.ones_like(blk, dtype=torch.int32))
+    coarse = torch.cat([hist.new_zeros(B, 1),
+                        torch.cumsum(hist[:, :nb], 1, dtype=torch.int32)], 1)
+    return KeyTable(keys=keys, coarse=coarse,
+                    num=num_voxels.to(torch.int32),
+                    spatial_shape=(Z, Y, X), shift=shift)
+

@@ -26,6 +26,7 @@ BUILD = PKG / "build"
 SOURCES = {
     "rank_pack": "rank_pack.cu",
     "rank_lookup": "rank_lookup.cu",
+    "merge_lookup": "merge_lookup.cu",
     "rulebook_conv": "rulebook_conv.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,13 +1,19 @@
 """Point devoxelization: 3-NN inverse-distance interpolation of voxel
 features (PyTorch port of lidarseg3d_tpu/ops/interpolate.py:32
-grid_three_interpolate, rulebook-reuse branch).
+grid_three_interpolate, its rulebook-reuse and sorted branches).
 
 The 3 nearest active-voxel centers of a point lie (essentially always) in
-its 3x3x3 voxel neighbourhood, and a point's own cell is an active voxel
-whenever the point is in the grid, so its 27 candidates are its voxel's row
-of the backbone's stride-1 subm rulebook: one own-row lookup plus one
-27-wide row gather. Points without an active own cell take a rank-order
-fallback. Weights are 1/(d^2 + 1e-8), normalized.
+its 3x3x3 voxel neighbourhood, so a point keeps the best 3 of 27
+candidates, plus a rank-order fallback for points whose neighbourhood
+holds no active voxel. Weights are 1/(d^2 + 1e-8), normalized.
+
+- Rulebook reuse (a RankTable and the backbone's 27-tap subm rulebook): a
+  point's own cell is an active voxel whenever the point is in the grid,
+  so its 27 candidates are its voxel's rulebook row: one own-row lookup
+  plus one 27-wide row gather.
+- Sorted (any other RankTable, and every KeyTable): points sorted by cell,
+  nine grouped triple-lookups (sparse.lookup_rank3_cells) resolve the 27
+  candidates, and the result is un-permuted.
 """
 
 import torch
@@ -32,18 +38,21 @@ def grid_three_interpolate(points_xyz, point_valid, struct, features,
                            voxel_size, point_cloud_range, table, k=3,
                            subm_rulebook=None):
     """points_xyz [B, N, 3] metric xyz; point_valid [B, N] bool; the
-    stride-1 sparse tensor (struct, features [B, V, C]) with its rank table
-    and its [27, B, V] subm rulebook. Returns [B, N, C]."""
-    if (not isinstance(table, coord_ops.RankTable) or subm_rulebook is None
-            or subm_rulebook.shape[0] != 27):
-        raise NotImplementedError(
-            "the port devoxelizes through the rank table and the "
-            "backbone's 27-tap subm rulebook; the sorted branch is not "
-            "ported yet (ROADMAP.md B2)")
+    stride-1 sparse tensor (struct, features [B, V, C]) with its lookup
+    table and optionally its [27, B, V] subm rulebook. Returns [B, N, C]."""
     pv = _point_voxel_coords(points_xyz, voxel_size, point_cloud_range)
-    return _grid_interp_rulebook(points_xyz, point_valid, struct, features,
-                                 voxel_size, point_cloud_range, table, pv, k,
-                                 subm_rulebook)
+    # rulebook reuse only on RankTables, as in the JAX package: on a
+    # KeyTable the own-row lookup would need the sort + merge anyway
+    if (isinstance(table, coord_ops.RankTable) and subm_rulebook is not None
+            and subm_rulebook.shape[0] == 27):
+        return _grid_interp_rulebook(points_xyz, point_valid, struct,
+                                     features, voxel_size, point_cloud_range,
+                                     table, pv, k, subm_rulebook)
+    if isinstance(table, (coord_ops.RankTable, coord_ops.KeyTable)):
+        return _grid_interp_sorted(points_xyz, point_valid, struct, features,
+                                   voxel_size, point_cloud_range, table, pv,
+                                   k)
+    raise TypeError(f"unknown table {type(table).__name__}")
 
 
 def _small_topk(cand_d, k):
@@ -146,3 +155,58 @@ def _grid_interp_rulebook(points_xyz, point_valid, struct, features,
         cand_d, gidx27, row0, struct, points_xyz, point_valid, voxel_size,
         point_cloud_range)
     return _interp_from_candidates(cand_d, gidx27, features, point_valid, k)
+
+
+def _grid_interp_sorted(points_xyz, point_valid, struct, features,
+                        voxel_size, point_cloud_range, table, pv, k):
+    """Sort points by extended cell (out-of-grid and invalid points last),
+    resolve the 27 candidates with nine grouped triple-lookups, blend in
+    sorted order, and un-permute. Candidate distances are separable: a
+    found candidate's voxel is exactly pv + delta."""
+    B, N, _ = points_xyz.shape
+    V = struct.capacity
+    Z, Y, X = (int(s) for s in struct.spatial_shape)
+    dev = points_xyz.device
+
+    pz, py, px = pv[..., 0], pv[..., 1], pv[..., 2]
+    inb = ((pz >= 0) & (pz < Z) & (py >= 0) & (py < Y)
+           & (px >= 0) & (px < X) & point_valid)
+    cell = (pz * Y + py) * (X + 2) + (px + 1)
+    sort_key = torch.where(inb, cell, coord_ops.INVALID_KEY)
+    perm = torch.argsort(sort_key, dim=-1, stable=True)  # jnp.argsort's
+
+    def take(a):
+        return torch.gather(a, 1, perm)
+
+    pxyz_s = torch.gather(points_xyz, 1, perm[..., None].expand(B, N, 3))
+    cell_s, pz_s, py_s, px_s = take(cell), take(pz), take(py), take(px)
+    valid_s = take(point_valid)
+
+    # nine (dz, dy) groups; each triple covers dx in {-1, 0, 1}. The x
+    # center may sit in the extended range [-1, X]: a point one cell
+    # outside the grid still reaches the x=0 / x=X-1 neighbours.
+    dzy = [(dz, dy) for dz in (-1, 0, 1) for dy in (-1, 0, 1)]
+    cells = torch.stack([cell_s + (dz * Y + dy) * (X + 2) for dz, dy in dzy])
+    inbs = torch.stack([
+        valid_s & (pz_s + dz >= 0) & (pz_s + dz < Z)
+        & (py_s + dy >= 0) & (py_s + dy < Y) & (px_s >= -1) & (px_s <= X)
+        for dz, dy in dzy])
+    (im, fm), (i0, f0), (ip, fp) = sp.lookup_rank3_cells(table, cells, inbs)
+
+    idx27 = torch.stack([im, i0, ip], dim=1).reshape(27, B, N)
+    fnd27 = torch.stack([fm, f0, fp], dim=1).reshape(27, B, N)
+    offs = (torch.arange(B, dtype=torch.int32, device=dev) * V)[None, :, None]
+    gidx27 = torch.where(fnd27, idx27 + offs, B * V).to(torch.int32)
+    d2 = _separable_d2(pxyz_s, pz_s, py_s, px_s, voxel_size,
+                       point_cloud_range, _RASTER27)
+    cand_d = torch.where(fnd27, d2, torch.inf)
+    # rank-1 of the point's own cell: the centre (dz, dy) group's raw i0,
+    # read at every position (hence sparse.kernel_cells' clamp matters)
+    cand_d, gidx27 = _append_rank_fallback(
+        cand_d, gidx27, i0[4], struct, pxyz_s, valid_s, voxel_size,
+        point_cloud_range)
+    out_s = _interp_from_candidates(cand_d, gidx27, features, valid_s, k)
+    inv = torch.empty_like(perm).scatter_(
+        1, perm, torch.arange(N, device=dev).expand(B, N))
+    C = out_s.shape[-1]
+    return torch.gather(out_s, 1, inv[..., None].expand(B, N, C))

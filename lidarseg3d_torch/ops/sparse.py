@@ -1,5 +1,6 @@
 """Sparse 3D convolution as gather -> GEMM over key-sorted voxel sets
-(PyTorch port of lidarseg3d_tpu/ops/sparse.py, rank-table path).
+(PyTorch port of lidarseg3d_tpu/ops/sparse.py: rank-table and sorted-keys
+lookups, rulebooks, convs).
 
 For every kernel offset each output voxel has AT MOST ONE input partner,
 so a sparse conv is K gathers + K matmuls with no scatter:
@@ -11,8 +12,10 @@ Rulebooks are [K, B, V] global flat rows into the ``flat_features`` table
 sites default to the decimation rule ``floor(in / stride)``, as in the JAX
 package; ``rule="union"`` gives spconv's receptive-field union.
 
-Kernels on this path: the rank-table lookup (every rulebook build, through
-``lookup_rank3_cells``) and the fused rulebook conv (every conv).
+Kernels on this path: the rank-table lookup (rulebook builds on a
+RankTable), the sorted-keys merge lookup (rulebook builds on a KeyTable),
+both through ``lookup_rank3_cells``, and the fused rulebook conv (every
+conv).
 """
 
 from dataclasses import dataclass
@@ -20,6 +23,7 @@ from dataclasses import dataclass
 import torch
 
 from . import coords as coord_ops
+from .merge_lookup import merge_cells
 from .rank_lookup import gather_cells
 from .rulebook_conv import rulebook_conv
 
@@ -70,20 +74,47 @@ def build_structure(coords, num_voxels, spatial_shape):
     )
 
 
-def dense_table(s: SparseStructure, kind="auto"):
+# Lookup-table kind of the rulebook builds (the JAX package's TABLE_KIND
+# without its "hash" and "dense" oracle kinds):
+#   "auto" - "rank" while the packed table is small, "keys" beyond that;
+#   "rank" - dense packed rank table (coords.RankTable);
+#   "keys" - sorted voxel keys, no dense table (coords.KeyTable).
+TABLE_KIND = "auto"
+# "auto" keeps the JAX package's rule so each stage takes the same table
+# kind as the reference: a RankTable while its packed table, padded to
+# 1024 cells, fits the 12 MiB VMEM budget of the TPU lookup kernel
+# (lidarseg3d_tpu/ops/pallas_lookup.py supported, LOOKUP_VMEM_BUDGET).
+RANK_TABLE_MAX_CELLS = 12 * 2**20 // 4  # 3,145,728 int32 cells
+
+
+def set_table_kind(kind):
+    global TABLE_KIND
+    if kind not in ("auto", "rank", "keys"):
+        raise ValueError(f"unknown table kind {kind!r}")
+    TABLE_KIND = kind
+
+
+def table_kind(spatial_shape):
+    """The table kind ``dense_table`` builds for a grid: TABLE_KIND, with
+    "auto" resolved by the cell count of the x-extended grid."""
+    kind = TABLE_KIND
+    if kind == "auto":
+        Z, Y, X = (int(d) for d in spatial_shape)
+        ncells = -(-(Z * Y * (X + 2)) // 1024) * 1024
+        kind = "rank" if ncells <= RANK_TABLE_MAX_CELLS else "keys"
+    return kind
+
+
+def dense_table(s: SparseStructure):
     """Lookup table for structure ``s``, built once per structure per
-    forward and shared by its rulebooks. The port serves the rank table
-    ("auto" -> "rank"): a GPU thread reads the table from device memory at
-    any size, so the JAX package's VMEM-budget dispatch to "keys" does not
-    apply here."""
-    if kind in ("auto", "rank"):
+    forward and shared by its rulebooks: a RankTable or a KeyTable, as
+    ``table_kind`` picks (despite the name, which the JAX package keeps
+    too, a KeyTable holds no dense table)."""
+    kind = table_kind(s.spatial_shape)
+    if kind == "rank":
         return coord_ops.build_rank_table(s.coords, s.num_voxels,
                                           s.spatial_shape)
-    if kind == "keys":
-        raise NotImplementedError(
-            "the sorted-keys table (KeyTable, merge kernel) is not ported "
-            "yet (ROADMAP.md B2)")
-    raise ValueError(f"unknown table kind {kind!r}")
+    return coord_ops.build_key_table(s.coords, s.num_voxels, s.spatial_shape)
 
 
 def flatten_indices(idx, found, v_in):
@@ -104,23 +135,50 @@ def flat_features(features):
 
 def rank3_query_cells(table, qc, gvalid):
     """Grouped 3-x-tap queries: qc [G, B, V, 3] (z, y, x) with x in the
-    extended range [-1, X] -> (cell [G, B, V] int32 clipped to the table,
+    extended range [-1, X] -> (cell [G, B, V] int32 on the x-extended grid,
     inb [G, B, V] validity)."""
     Z, Y, X = (int(s) for s in table.spatial_shape)
     z, y, x = qc[..., 0], qc[..., 1], qc[..., 2]
     inb = ((z >= 0) & (z < Z) & (y >= 0) & (y < Y)
            & (x >= -1) & (x <= X) & gvalid)
-    nce = Z * Y * (X + 2)
-    cell = coord_ops.extended_cells(qc, table.spatial_shape).clamp(0, nce - 1)
+    cell = coord_ops.extended_cells(qc, table.spatial_shape)
     return cell.to(torch.int32), inb
 
 
+def kernel_cells(table, cell, inb):
+    """The query cells the lookup kernel of ``table`` receives: clipped to
+    the grid and, on a KeyTable, clamped per (group, sample) row to the
+    row's largest ``inb`` cell, as the JAX package's _merge_cells does for
+    its merge kernel and its XLA oracle alike. Only the ``inb`` positions
+    feed rulebooks, but the sorted devoxelization reads the own cell's
+    rank at every position, so the clamp decides which fallback voxel an
+    out-of-grid point gets.
+
+    RankTables are not clamped. That follows the JAX package on the CPU
+    (its XLA gather, what the tests hold the port against); its Pallas
+    lookup on a TPU clamps RankTable queries too, so there an out-of-grid
+    point on the sorted devoxelization over a RankTable (no rulebook; on
+    neither main path) may get another fallback voxel (ROADMAP C)."""
+    Z, Y, X = (int(s) for s in table.spatial_shape)
+    cell = cell.clamp(0, Z * Y * (X + 2) - 1)
+    if isinstance(table, coord_ops.KeyTable):
+        maxc = torch.where(inb, cell, 0).amax(dim=-1, keepdim=True)
+        cell = torch.minimum(cell, maxc)
+    return cell.to(torch.int32).contiguous()
+
+
 def lookup_rank3_cells(table, cell, inb):
-    """One gather per query -> rows of cells x-1, x, x+1:
-    ((idx_m, f_m), (idx_0, f_0), (idx_p, f_p)), each [G, B, V]. Only the
-    ``inb`` positions are consumed; the GPU kernel needs no monotone
-    clamping of the others (the TPU kernel did)."""
-    v = gather_cells(table.packed, cell.contiguous())
+    """One lookup per query -> rows of cells x-1, x, x+1:
+    ((idx_m, f_m), (idx_0, f_0), (idx_p, f_p)), each [G, B, V]. ``cell``
+    [G, B, V] is on the x-extended grid, arbitrary where ``inb`` is False.
+    A RankTable takes the rank_lookup kernel (no monotone clamping: the GPU
+    kernel reads any cell), a KeyTable the merge_lookup kernel."""
+    cells = kernel_cells(table, cell, inb)
+    if isinstance(table, coord_ops.KeyTable):
+        v = merge_cells(table.keys, table.coarse, table.shift, table.num,
+                        cells)
+    else:
+        v = gather_cells(table.packed, cells)
     rank, am, a0, ap = coord_ops.rank_bits(v)
     i32 = torch.int32
     return (((rank - a0 - 1).to(i32), inb & (am > 0)),
@@ -141,10 +199,11 @@ def _stack_taps(lookups, v_in, G):
 
 
 def _require_rank3(table, ks):
-    if not isinstance(table, coord_ops.RankTable) or ks[2] != 3:
+    if (not isinstance(table, (coord_ops.RankTable, coord_ops.KeyTable))
+            or ks[2] != 3):
         raise NotImplementedError(
-            "the port builds rulebooks on rank tables for kernels 3 wide "
-            f"in x; got {type(table).__name__}, kernel {ks}")
+            "the port builds rulebooks on rank or key tables for kernels "
+            f"3 wide in x; got {type(table).__name__}, kernel {ks}")
 
 
 def subm_queries(s: SparseStructure, kernel_size=3):
@@ -160,7 +219,7 @@ def subm_queries(s: SparseStructure, kernel_size=3):
 
 def build_subm_rulebook(s: SparseStructure, kernel_size=3, table=None):
     """[K, B, V] flat rulebook of a submanifold conv on ``s``; each
-    (dz, dy) group of three x-taps costs one rank-table gather."""
+    (dz, dy) group of three x-taps costs one table lookup."""
     ks = _triple(kernel_size)
     if table is None:
         table = dense_table(s)

@@ -6,6 +6,10 @@ conversion of a collated batch.
 The SemanticKITTI bench shape: point cloud range PCR at voxel size VSZ
 gives the input spatial shape (Z, Y, X) = (21, 256, 256); one camera at
 384x1280; V=131072 voxels and N=122880 points.
+
+The semnusc bench shape (``SEMNUSC``, the JAX package's bench.py:155-175):
+the 0.1 m nuScenes grid (Z, Y, X) = (41, 1024, 1024), six cameras at
+640x960, V=N=40960, 17 classes, and the image branch in bf16.
 """
 
 import numpy as np
@@ -16,6 +20,8 @@ from .datasets.batching import collate_segnet
 
 PCR = (-25.6, -25.6, -4.0, 25.6, 25.6, 2.0)
 VSZ = (0.2, 0.2, 0.3)
+SEMNUSC = dict(pcr=(-51.2, -51.2, -5.0, 51.2, 51.2, 3.0), vsz=(0.1, 0.1, 0.2),
+               V=40960, N=40960, ncam=6, img_hw=(640, 960), num_class=17)
 
 
 def grid_shape(pcr=None, vsz=None):
@@ -53,11 +59,13 @@ def synthetic_batch(B, V, N, P=5, seed=0, pcr=None, vsz=None):
     return collate_segnet(frames, max_voxels=V, max_points=N)
 
 
-def mseg3d_model_cfg(num_class=20, ratio=2, small_hrnet=False, pcr=None,
-                     vsz=None):
+def mseg3d_model_cfg(num_class=20, ratio=2, img_hw=(384, 1280),
+                     small_hrnet=False, pcr=None, vsz=None, img_bf16=False):
     """MSeg3D flagship: ImprovedMeanVFE + UNetSCN3D(r) + HRNet-w18 + FCN
     head + fusion head. ``small_hrnet`` keeps the w18 widths with one
-    module / one block per stage (for small tests)."""
+    module / one block per stage (for small tests); ``img_bf16`` runs
+    HRNet and the FCN head with bf16 activations (fp32 parameters, BN and
+    outputs). ``img_hw`` is unused, as in the JAX package's signature."""
     if small_hrnet:
         extra = dict(
             stage1=dict(num_modules=1, num_branches=1, block="BOTTLENECK",
@@ -84,13 +92,15 @@ def mseg3d_model_cfg(num_class=20, ratio=2, small_hrnet=False, pcr=None,
         )
     pcr = list(pcr or PCR)
     vsz = list(vsz or VSZ)
+    bf16 = {"compute_dtype": "bfloat16"} if img_bf16 else {}
     return dict(
         type="SegMSeg3DNet",
-        img_backbone=dict(type="HRNet", extra=extra),
+        img_backbone=dict(type="HRNet", extra=extra, **bf16),
         img_head=dict(
             type="FCNMSeg3DHead", num_classes=num_class, ignore_index=0,
             in_index=(0, 1, 2, 3), in_channels=(18, 36, 72, 144),
             num_convs=2, channels=48, concat_input=False, loss_weight=0.5,
+            **bf16,
         ),
         reader=dict(type="ImprovedMeanVoxelFeatureExtractor",
                     num_input_features=4),

@@ -1,6 +1,8 @@
 """Device selection and the port's numerical precision (one place).
 
-Precision: fp32 everywhere. TF32 is switched off for both
+Precision: fp32 everywhere except an image branch configured with
+``compute_dtype="bfloat16"`` (models/img_backbones/hrnet.py, bf16
+activations with fp32 parameters and BN). TF32 is switched off for both
 matmuls and cuDNN convolutions, because cuDNN runs fp32 convolutions in
 TF32 by default (about three decimal digits) and the JAX reference runs
 them in full fp32 on the CPU. Every entry point resolves its device here,
