@@ -6,7 +6,7 @@ their plain PyTorch versions.
 
 Phases (each fails loudly with a non-zero exit):
   1. print the card's name and power limit (nvidia-smi); no card -> exit 1;
-  2. build the four CUDA kernels from lidarseg3d_torch/csrc into
+  2. build the five CUDA kernels from lidarseg3d_torch/csrc into
      lidarseg3d_torch/build (one nvcc per source, in parallel);
   3. semkitti: the SemanticKITTI MSeg3D inference forward (UNetSCN3D r=2,
      HRNet-w18 and the FCN head in fp32, fusion head; seeded random
@@ -23,18 +23,36 @@ Phases (each fails loudly with a non-zero exit):
      head devoxelizes on the sorted branch); also check the table kinds,
      the small card-vs-CPU agreement on that grid (fp32 image branch) and
      the bf16 image branch against an fp32 one with the same weights;
+  3c. train: the MSeg3D training step at the semkitti shape (fp32, B=2,
+     labels on, dropout 0.25) through apis.train.make_train_step: one warm
+     step, then five counted steps on distinct batches; check that every
+     loss term and the gradient norm are finite, that every parameter has
+     a finite gradient and moved, that the BN running statistics moved,
+     and that each step launched 36 forward + 35 dX rulebook convs (the
+     input conv's features need no gradient), 36 dW kernels, 11 rank
+     lookups and 8 packs (one per sample and stage); time the steps and
+     the forward / backward / optimizer split. Then one train step of a
+     small seeded model on the card (kernels) against the CPU (plain
+     versions: loss terms within 1e-4; gradients of the lidar branch and
+     the head within 1e-3 in relative L2 norm and 5e-3 of their max, of
+     the image branch within 1e-2 and 2e-2), and twelve steps on one
+     fixed small batch that must lower the loss;
   4. hold each kernel against its plain version on the card at each main
      path's shapes, from a real scan of that path: the rulebook conv in
-     fp32 and bf16 (stage-1 subm, stage-1->2 strided, stage-4 subm), the
+     fp32 and bf16 (stage-1 subm, stage-1->2 strided, stage-4 subm; and as
+     dX under the transposed rulebook, up to the 256-wide output of the
+     decoder's concat convs), the dW kernel in fp32 and bf16 (stage-1 subm
+     12->32 and 32->32 at B=2, strided 32->64, stage-4 subm 256->128,
+     inverse 128->128, and the semnusc stage-1 subm), the
      rank-table pack and lookup exactly (semkitti stage 1, semnusc stage
      3), the merge lookup exactly (semnusc stages 1 and 2), and the pack,
      lookup and merge on the 92,865,984-cell 0.1 m SemanticKITTI
      structure (41x1504x1506); times are CUDA-event means of back-to-back
      calls after warm-up, and device-only means (the profiler's summed
      kernel durations);
-  5. profile one scan of each path (device busy share and the kernels
-     that take the time); print the card line, one JSON line of the
-     kernels, then the result line.
+  5. profile one scan of each inference path and one train step (device
+     busy share and the kernels that take the time); print the card line,
+     one JSON line of the kernels, then the result line.
 """
 
 import json
@@ -53,6 +71,37 @@ BIG_GRID = (41, 1504, 1504)  # the 0.1 m SemanticKITTI grid (Z, Y, X)
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
 TOL_CONV = {"fp32": 1e-5, "bf16": 2.0 ** -7}  # max |err| / max |plain|
+# dW sums up to 262,144 products per entry in fp32 on both sides (the
+# products of bf16 inputs are exact in fp32), in another order than the
+# plain matmul
+TOL_DW = {"fp32": 1e-5, "bf16": 1e-5}  # max |err| / max |plain|
+# the training path (phase 3c): the semkitti shape at B=2 and the
+# SemanticKITTI MSeg3D config's optimizer
+TRAIN = dict(cfg=dict(ratio=2), B=2, V=131072, N=122880, img_hw=(384, 1280),
+             steps=5,
+             optimizer=dict(type="adam", wd=0.01),
+             lr=dict(lr_max=0.01, moms=(0.95, 0.85), div_factor=10.0,
+                     pct_start=0.4),
+             total_steps=1000, grad_clip=35.0,
+             # per step: 36 forward convs + 35 dX (every conv but the
+             # input conv, whose features need no gradient); one dW per
+             # conv; 10 rulebook builds + the head's own-cell lookup; one
+             # pack per sample for each of the four stages' rank tables
+             per_step={"rulebook_conv": 71, "rulebook_conv_dw": 36,
+                       "rank_lookup": 11, "rank_pack": 8,
+                       "merge_lookup": 0})
+# small train step, card against CPU: loss terms relative; each gradient
+# tensor against the CPU's as (relative L2 norm, max |err| / max |CPU|),
+# plus an absolute floor for tensors whose gradient is analytically zero.
+# The lidar branch and the point head, whose gradients run through the
+# port's kernels, are held to (1e-3, 5e-3); the entrywise limit is not
+# 1e-3 because fp32 itself is noisier than that in front of the point
+# head's eps=1e-6 BN (on the CPU the fp32 gradient of point_head
+# TorchLinear_1.weight is 1.8e-3 of its max off a float64 run of the same
+# step). The image branch (cuDNN against the CPU's convolutions, no kernel
+# of the port; batch statistics over as few as 16 pixels) gets (1e-2, 2e-2)
+TOL_TRAIN_LOSS = 1e-4
+TOL_TRAIN_GRAD = {"lidar+head": (1e-3, 5e-3), "image": (1e-2, 2e-2)}
 TOL_BF16_BRANCH = 0.1  # max |err| / max |fp32|, tests/_bf16_test_body.py
 IMG_KEYS = ("image_features", "image_logits", "camera_semantic_embeddings")
 
@@ -69,8 +118,9 @@ def main_paths():
             cfg=dict(ratio=2), V=131072, N=122880, img_hw=(384, 1280),
             ncam=1, ncls=20, pcr=None, vsz=None, tables=("rank",) * 4,
             # head: rulebook reuse, one own-cell rank lookup
-            per_forward={"rulebook_conv": 36, "rank_lookup": 11,
-                         "rank_pack": 4, "merge_lookup": 0}),
+            per_forward={"rulebook_conv": 36, "rulebook_conv_dw": 0,
+                         "rank_lookup": 11, "rank_pack": 4,
+                         "merge_lookup": 0}),
         "semnusc": dict(
             cfg=dict(ratio=2, num_class=nu["num_class"], img_bf16=True,
                      pcr=nu["pcr"], vsz=nu["vsz"]),
@@ -79,8 +129,9 @@ def main_paths():
             tables=("keys", "keys", "rank", "rank"),
             # merges: t1 subm1 down2, t2 subm2 inv2 down3, the sorted head;
             # rank lookups: t3 subm3 inv3 down4, t4 subm4 inv4
-            per_forward={"rulebook_conv": 36, "rank_lookup": 5,
-                         "rank_pack": 2, "merge_lookup": 6}),
+            per_forward={"rulebook_conv": 36, "rulebook_conv_dw": 0,
+                         "rank_lookup": 5, "rank_pack": 2,
+                         "merge_lookup": 6}),
     }
 
 
@@ -93,9 +144,11 @@ def wrappers():
     from lidarseg3d_torch.ops.merge_lookup import merge_cells
     from lidarseg3d_torch.ops.rank_lookup import gather_cells
     from lidarseg3d_torch.ops.rank_pack import pack_rank_table
-    from lidarseg3d_torch.ops.rulebook_conv import rulebook_conv
+    from lidarseg3d_torch.ops.rulebook_conv import (rulebook_conv,
+                                                    rulebook_conv_dw)
 
-    return {"rulebook_conv": rulebook_conv, "rank_lookup": gather_cells,
+    return {"rulebook_conv": rulebook_conv,
+            "rulebook_conv_dw": rulebook_conv_dw, "rank_lookup": gather_cells,
             "rank_pack": pack_rank_table, "merge_lookup": merge_cells}
 
 
@@ -125,9 +178,12 @@ def device_ms(fn, reps=10):
 
     fn()
     torch.cuda.synchronize()
-    # a session now and then returns no device events at all (seen once in
-    # dozens of sessions on an H100): measure again, up to three sessions
-    for attempt in range(3):
+    # a session now and then drops device events: all of them (seen once in
+    # dozens of sessions on an H100) or some (0.57 against 0.92 ms for the
+    # same kernel). Dropped events only lower the sum, so two sessions
+    # with events are measured, up to four tried, and the larger sum kept
+    sums = []
+    for attempt in range(4):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -135,10 +191,15 @@ def device_ms(fn, reps=10):
             torch.cuda.synchronize()
         kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if kern:
-            return sum(e.time_range.end - e.time_range.start
-                       for e in kern) / reps / 1e3
-        log(f"  profiler session {attempt + 1} recorded no device activity")
-    raise SystemExit("profiler recorded no device activity in 3 sessions")
+            sums.append(sum(e.time_range.end - e.time_range.start
+                            for e in kern) / reps / 1e3)
+            if len(sums) == 2:
+                return max(sums)
+        else:
+            log(f"  profiler session {attempt + 1} recorded no device "
+                "activity")
+    raise SystemExit("profiler recorded device activity in fewer than 2 of "
+                     "4 sessions")
 
 
 def timings(fn, plain, library=None, plain_reps=20):
@@ -209,6 +270,64 @@ def check_conv(report, name, feats, rb, cin, cout, gen):
         if not ok:
             raise SystemExit(f"rulebook_conv {name} {dt} disagrees with its "
                              f"plain version: {err} > {TOL_CONV[dt]}*{scale}")
+        report.append(row)
+
+
+def check_dw(report, name, feats, rb, cin, cout, gen):
+    """rulebook_conv_dw against rulebook_conv_dw_plain in fp32 and bf16:
+    feats [B, Vin, cin] and a random cotangent [B*Vout, cout]."""
+    import torch
+    from lidarseg3d_torch.ops import sparse as sp
+    from lidarseg3d_torch.ops.rulebook_conv import (rulebook_conv_dw,
+                                                    rulebook_conv_dw_plain)
+
+    K, M = rb.shape[0], rb.shape[1] * rb.shape[2]
+    g32 = (torch.rand(M, cout, generator=gen) * 2 - 1).to(DEV)
+    miss = feats.shape[0] * feats.shape[1]
+    hit = rb != miss
+    pairs = int(hit.sum())
+    rows = int(torch.unique(rb[hit]).numel()) + 1
+    # cotangent rows the function must read: those with a partner at some
+    # tap (a row whose taps all miss adds nothing to any dW[k])
+    grows = int(hit.any(0).sum())
+    for dt, torch_dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        ff = sp.flat_features(feats.to(torch_dt))
+        g = g32.to(torch_dt).contiguous()
+        got = rulebook_conv_dw(ff, rb, g)
+        again = rulebook_conv_dw(ff, rb, g)
+        want = rulebook_conv_dw_plain(ff, rb, g)
+        torch.cuda.synchronize()
+        if got.dtype != torch.float32 or tuple(got.shape) != (K, cin, cout):
+            raise SystemExit(f"rulebook_conv_dw {name} {dt}: output "
+                             f"{got.dtype} {tuple(got.shape)}")
+        if not torch.equal(got, again):
+            raise SystemExit(f"rulebook_conv_dw {name} {dt}: two runs on the "
+                             "same inputs differ")
+        err = float((got - want).abs().max())
+        scale = max(float(want.abs().max()), 1e-30)
+        ok = err <= TOL_DW[dt] * scale
+        es = 4 if dt == "fp32" else 2
+        nbytes = (rows * cin * es + rb.numel() * 4 + grows * cout * es
+                  + K * cin * cout * 4)
+        flops = 2.0 * pairs * cin * cout
+        t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dt]
+        row = dict(
+            name=f"rulebook_conv_dw[{name} {cin}->{cout} {dt}]", route="cuda",
+            source="lidarseg3d_torch/csrc/rulebook_conv_dw.cu",
+            replaces="lidarseg3d_tpu/ops/pallas_conv.py:250",
+            launches=None, max_abs_err=err,
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            **timings(lambda: rulebook_conv_dw(ff, rb, g),
+                      lambda: rulebook_conv_dw_plain(ff, rb, g),
+                      plain_reps=5))
+        log(f"  dW {name} {cin}->{cout} {dt}: M={M} pairs={pairs} rows read="
+            f"{rows} gout rows read={grows} max_abs_err={err:.3e} "
+            f"(max|plain|={scale:.3e}, tol {TOL_DW[dt]:.1e} rel) "
+            f"bit-identical rerun {fmt_times(row)}")
+        if not ok:
+            raise SystemExit(f"rulebook_conv_dw {name} {dt} disagrees with "
+                             f"its plain version: {err} > {TOL_DW[dt]}*{scale}")
         report.append(row)
 
 
@@ -357,6 +476,37 @@ def kernel_checks(runs):
         check_conv(report, f"subm V={s4.capacity}", f4, books["subm4"], 256,
                    128, gen)
 
+        # the training step's kernels at its own shapes (B=2): dW, and the
+        # forward kernel as dX under the transposed rulebook (a subm
+        # rulebook's transpose is its own with the taps mirrored; strided
+        # and inverse rulebooks are each other's)
+        tmodel, tex = runs["train"]["model"], runs["train"]["ex0"]
+        tst = tmodel.lidar_input(tex)
+        tb = tmodel.backbone_mod.structures(tst.structure)
+        B, V1 = tst.features.shape[:2]
+        c2, c3, c4 = (tb[f"s{i}"].capacity for i in (2, 3, 4))
+
+        def rnd(v, c):
+            return torch.rand(B, v, c, generator=gen).to(DEV)
+
+        check_dw(report, f"subm B={B} V={V1}", tst.features, tb["subm1"], 12,
+                 32, gen)
+        check_dw(report, f"subm B={B} V={V1}", rnd(V1, 32), tb["subm1"], 32,
+                 32, gen)
+        check_dw(report, f"strided B={B} {V1}->{c2}", rnd(V1, 32),
+                 tb["down2"], 32, 64, gen)
+        check_dw(report, f"subm B={B} V={c4}", rnd(c4, 256), tb["subm4"],
+                 256, 128, gen)
+        check_dw(report, f"inverse B={B} {c4}->{c3}", rnd(c4, 128),
+                 tb["inv4"], 128, 128, gen)
+        check_conv(report, f"dX of subm 32->32 B={B} V={V1}", rnd(V1, 32),
+                   tb["subm1"].flip(0).contiguous(), 32, 32, gen)
+        check_conv(report, f"dX of strided 32->64 B={B} {c2}->{V1}",
+                   rnd(c2, 64), tb["inv2"], 64, 32, gen)
+        check_conv(report, f"dX of subm 256->128 B={B} V={c4}", rnd(c4, 128),
+                   tb["subm4"].flip(0).contiguous(), 128, 256, gen)
+        del tb, tst
+
         # lookup + pack on the stage-1 table of this scan
         act1 = co.activity(s1.coords, s1.num_voxels, s1.spatial_shape)
         check_pack(report, "stage-1 1387008 cells",
@@ -382,6 +532,8 @@ def kernel_checks(runs):
         nf4 = torch.rand(1, ns4.capacity, 256, generator=gen).to(DEV)
         check_conv(report, f"semnusc subm V={ns4.capacity}", nf4,
                    nbooks["subm4"], 256, 128, gen)
+        check_dw(report, f"semnusc subm V={ns1.capacity}", nst.features,
+                 nbooks["subm1"], 12, 32, gen)
         s3 = nbooks["s3"]
         act3 = co.activity(s3.coords, s3.num_voxels, s3.spatial_shape)
         nce3 = act3.shape[1] - 1
@@ -613,19 +765,219 @@ def run_path(name, p):
                 path=p)
 
 
-def profile_scan(model, ex, top=12):
-    """One scan's forward + predict under torch.profiler: the share of the
-    scan's span in which a kernel ran on the card, and the kernels that
-    took the most device time. Returns the busy share (None when the
-    profiler recorded no device activity)."""
+def train_setup(model, opt_cfg, lr_cfg, total_steps, grad_clip, ishape):
+    from lidarseg3d_torch.apis import train as tr
+    from lidarseg3d_torch.solver.optim import build_one_cycle_optimizer
+
+    opt, _ = build_one_cycle_optimizer(opt_cfg, lr_cfg, total_steps,
+                                       grad_clip=grad_clip)
+    return (opt, tr.create_train_state(model, opt, seed=0),
+            tr.make_train_step(model, opt, ishape))
+
+
+def check_losses(ldict, what):
+    import math
+
+    vals = {k: float(v) for k, v in ldict.items()}
+    bad = [k for k, v in vals.items() if not math.isfinite(v)]
+    if bad or "grad_norm" not in vals or "loss" not in vals:
+        raise SystemExit(f"{what}: non-finite or missing loss terms {bad}: "
+                         f"{vals}")
+    return vals
+
+
+def run_train(t=TRAIN):
+    """Phase 3c: the full-width training step. Returns the result, the
+    launches per kernel over the counted steps, the model and one batch."""
+    import torch
+    from lidarseg3d_torch import synthetic as syn
+    from lidarseg3d_torch.apis import train as tr
+    from lidarseg3d_torch.models import build_detector
+
+    B, V, N, steps = t["B"], t["V"], t["N"], t["steps"]
+    ishape = syn.grid_shape()
+    model = build_detector(syn.mseg3d_model_cfg(**t["cfg"]), device=DEV,
+                           seed=0)
+    nparam = sum(p.numel() for p in model.parameters())
+    t0 = time.perf_counter()
+    batches = [syn.synthetic_mseg3d_batch(B, V, N, img_hw=t["img_hw"],
+                                          seed=100 + s, with_labels=True)
+               for s in range(steps + 1)]
+    log(f"  host: {steps + 1} labelled batches of {B} scans voxelized in "
+        f"{time.perf_counter() - t0:.2f} s; voxels "
+        f"{[b['num_voxels'].tolist() for b in batches]}; "
+        f"{nparam / 1e6:.2f} M parameters")
+    coords = [b["coordinates"] for b in batches]
+    if any((coords[i] == coords[j]).all() for i in range(len(coords))
+           for j in range(i)):
+        raise SystemExit("training batches share a coordinate set")
+    exs = [tr.example_to_device(b, DEV) for b in batches]
+    opt, state, step = train_setup(model, t["optimizer"], t["lr"],
+                                   t["total_steps"], t["grad_clip"], ishape)
+
+    state, ldict = step(state, exs[0])  # warm step
+    check_losses(ldict, "warm step")
+    torch.cuda.synchronize()
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    times, last, history = [], {k: 0 for k in ws}, []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1, steps + 1):
+        t1 = time.perf_counter()
+        state, ldict = step(state, exs[i])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        vals = check_losses(ldict, f"step {i}")
+        history.append(vals)
+        now = {k: w.launches for k, w in ws.items()}
+        delta = {k: now[k] - last[k] for k in ws}
+        last = now
+        if delta != t["per_step"]:
+            raise SystemExit(f"train step {i}: launches {delta}, expected "
+                             f"{t['per_step']}")
+        log(f"  step {i}: " + ", ".join(f"{k} {v:.4f}"
+                                        for k, v in vals.items()))
+    launches = dict(last)
+    log(f"  launches over {steps} steps: {launches} (per step "
+        f"{t['per_step']})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # every parameter has a finite gradient and moved; BN statistics moved
+    after = model.state_dict()
+    for k, p in model.named_parameters():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            raise SystemExit(f"{k}: missing or non-finite gradient")
+        if not torch.isfinite(p).all() or torch.equal(after[k], before[k]):
+            raise SystemExit(f"{k}: parameter non-finite or did not move")
+    stats = [k for k in after if k.endswith(("running_mean", "running_var"))]
+    still = [k for k in stats if torch.equal(after[k], before[k])]
+    if still or not stats:
+        raise SystemExit(f"BN running statistics did not move: {still[:5]}")
+    log(f"  {len(list(model.parameters()))} parameter tensors with finite "
+        f"gradients, all moved; {len(stats)} BN running statistics moved")
+
+    times.sort()
+    p50 = times[len(times) // 2]
+    mean = sum(times) / len(times)
+    result = dict(p50_ms=p50, mean_ms=mean,
+                  scans_per_s=1000.0 * B / mean, peak_memory_gib=peak,
+                  last_losses=history[-1])
+    log(f"  per-step ms (B={B}): p50 {p50:.2f}, mean {mean:.2f}, min "
+        f"{times[0]:.2f}, max {times[-1]:.2f} -> {1000.0 * B / mean:.2f} "
+        f"scans/s; peak memory {peak:.2f} GiB")
+
+    # forward / backward / optimizer split (CUDA events) over the
+    # same pieces make_train_step chains, after the counted steps
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    names = ["forward+loss", "backward", "optimizer"]
+    split = [0.0] * 3
+    reps = min(3, steps)
+    for i in range(reps):
+        e = [ev() for _ in range(4)]
+        e[0].record()
+        loss, _ = tr.forward_loss(state, exs[1 + i], ishape)
+        e[1].record()
+        loss.backward()
+        e[2].record()
+        tr.apply_gradients(state, opt)
+        e[3].record()
+        torch.cuda.synchronize()
+        for j in range(3):
+            split[j] += e[j].elapsed_time(e[j + 1]) / reps
+    log("  split ms: " + ", ".join(f"{n} {v:.2f}"
+                                   for n, v in zip(names, split)))
+    result["split_ms"] = dict(zip(names, split))
+    ex0 = dict(exs[1])
+    ex0["input_shape"] = ishape
+    return dict(result=result, launches=launches, model=model, ex0=ex0,
+                state=state, step=step)
+
+
+def small_train_check():
+    """One train step of the same small seeded model (ratio 1, small HRNet,
+    no dropout) on one labelled batch, on the card (kernels) and on the
+    CPU (plain versions): loss terms and gradients must agree. Then the
+    card goes on for eleven more steps on that batch, which must lower the
+    loss."""
+    import torch
+    from lidarseg3d_torch import synthetic as syn
+    from lidarseg3d_torch.apis import train as tr
+    from lidarseg3d_torch.models import build_detector
+
+    cfg = syn.mseg3d_model_cfg(ratio=1, small_hrnet=True)
+    cfg["point_head"]["model_cfg"]["DP_RATIO"] = 0
+    b = syn.synthetic_mseg3d_batch(2, 4096, 4096, img_hw=(64, 128), seed=7,
+                                   with_labels=True)
+    out = {}
+    for dev in (DEV, "cpu"):
+        m = build_detector(cfg, device=dev, seed=3)
+        _, state, step = train_setup(
+            m, dict(type="adam", wd=0.01), dict(lr_max=2e-3), 12, 35.0,
+            syn.grid_shape())
+        ex = tr.example_to_device(b, dev)
+        state, ldict = step(state, ex)
+        out[dev] = (check_losses(ldict, f"small step on {dev}"),
+                    {k: p.grad.detach().float().cpu()
+                     for k, p in m.named_parameters()}, state, step, ex)
+    card, cpu = out[DEV], out["cpu"]
+    for k, want in cpu[0].items():
+        if abs(card[0][k] - want) > TOL_TRAIN_LOSS * abs(want):
+            raise SystemExit(f"small train step: {k} {card[0][k]} on the "
+                             f"card, {want} on the CPU")
+    floor = 1e-8 * cpu[0]["grad_norm"]
+    worst = {g: [("", 0.0), ("", 0.0)] for g in TOL_TRAIN_GRAD}
+    bad = []
+    for k, want in cpu[1].items():
+        group = "image" if k.startswith("img_") else "lidar+head"
+        tol_l2, tol_max = TOL_TRAIN_GRAD[group]
+        scale = float(want.abs().max())
+        err = float((card[1][k] - want).abs().max())
+        if err > tol_max * scale + floor:
+            bad.append(f"{k}: off by {err:.3e} at max {scale:.3e}")
+        if scale <= 10 * floor:
+            continue
+        l2 = float((card[1][k] - want).norm() / want.norm())
+        if l2 > tol_l2:
+            bad.append(f"{k}: off by {l2:.3e} in relative L2 norm")
+        w = worst[group]
+        w[0] = max(w[0], (k, l2), key=lambda kv: kv[1])
+        w[1] = max(w[1], (k, err / scale), key=lambda kv: kv[1])
+    log(f"  small train step card vs CPU: loss {card[0]['loss']:.6f} / "
+        f"{cpu[0]['loss']:.6f}, grad_norm {card[0]['grad_norm']:.5f} / "
+        f"{cpu[0]['grad_norm']:.5f}; {len(cpu[1])} gradients")
+    for group, (wl2, wmax) in worst.items():
+        log(f"    {group}: worst relative L2 {wl2[1]:.2e} ({wl2[0]}), worst "
+            f"max-entry {wmax[1]:.2e} ({wmax[0]}); limits "
+            f"{TOL_TRAIN_GRAD[group]}")
+    if bad:
+        raise SystemExit("small train step: gradients on the card disagree "
+                         "with the CPU:\n  " + "\n  ".join(bad[:10]))
+    _, _, state, step, ex = card
+    losses = [card[0]["loss"]]
+    for _ in range(11):
+        state, ldict = step(state, ex)
+        losses.append(check_losses(ldict, "small descent")["loss"])
+    log("  12 steps on one small batch, loss: "
+        + " ".join(f"{v:.3f}" for v in losses))
+    if not losses[-1] < losses[0]:
+        raise SystemExit("twelve steps on one batch did not lower the loss")
+
+
+def profile_call(fn, what, top=12):
+    """fn() under torch.profiler: the share of its span in which a kernel
+    ran on the card, and the kernels that took the most device time.
+    Returns the busy share (None when the profiler recorded no device
+    activity)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        ret, bat = model(ex)
-        model.predict(ret, bat)
+        fn()
         torch.cuda.synchronize()
     events = prof.events()
     kern = [e for e in events if e.device_type == DeviceType.CUDA]
@@ -647,7 +999,7 @@ def profile_scan(model, ex, top=12):
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     share = busy / (t1 - t0)
-    log(f"  profile of one scan: span {(t1 - t0) / 1e3:.2f} ms, device busy "
+    log(f"  profile of one {what}: span {(t1 - t0) / 1e3:.2f} ms, device busy "
         f"{busy / 1e3:.2f} ms ({100 * share:.1f}%), {len(kern)} device "
         f"activities")
     for name, (tot, cnt) in sorted(per_name.items(),
@@ -686,6 +1038,9 @@ def main():
     for phase, name in (("3", "semkitti"), ("3b", "semnusc")):
         log(f"phase {phase}: main path {name}")
         runs[name] = run_path(name, paths[name])
+    log("phase 3c: main path train")
+    runs["train"] = run_train()
+    small_train_check()
     log("phase 4: kernels against their plain versions")
     report = kernel_checks(runs)
     for row in report:
@@ -693,10 +1048,17 @@ def main():
         by_path = {n: r["launches"][k] for n, r in runs.items()}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
-    log("phase 5: profile of one scan per path")
+    log("phase 5: profile of one scan per inference path, one train step")
     for name, r in runs.items():
         log(f"  {name}:")
-        r["result"]["device_busy_share"] = profile_scan(r["model"], r["ex0"])
+        if name == "train":
+            fn = lambda r=r: r["step"](r["state"], r["ex0"])  # noqa: E731
+        else:
+            def fn(r=r):
+                ret, bat = r["model"](r["ex0"])
+                r["model"].predict(ret, bat)
+        r["result"]["device_busy_share"] = profile_call(
+            fn, "train step" if name == "train" else "scan")
     log(json.dumps({"main_path": {n: r["result"] for n, r in runs.items()},
                     "seconds": time.perf_counter() - t_start}))
     log(card)

@@ -17,6 +17,10 @@ is its ``state_dict`` key, except for:
 
 The conversion is strict: every leaf is consumed and every parameter and
 buffer of the model is assigned, or it raises and names what is left.
+
+A gradient tree has the parameters' structure, so the same function carries
+it across (``flax_params_to_named``): tests compare gradients and updated
+parameters tensor by tensor under ``state_dict`` names.
 """
 
 from collections.abc import Mapping
@@ -75,12 +79,19 @@ def _convert_leaf(module, collection, leaf, arr):
                    f"{type(module).__name__}")
 
 
-def flax_to_state_dict(model, variables):
+def flax_to_state_dict(model, variables,
+                       collections=("params", "batch_stats")):
     """variables: {"params": ..., "batch_stats": ...} nested dicts of
-    numpy arrays (a Flax variable tree) -> state_dict for ``model``."""
+    numpy arrays (a Flax variable tree) -> state_dict for ``model``. With
+    ``collections=("params",)`` only the parameters are converted and
+    required."""
     target = model.state_dict()
+    if "batch_stats" in collections:
+        required = set(target)
+    else:
+        required = {k for k, _ in model.named_parameters()}
     out, leftover = {}, []
-    for collection in ("params", "batch_stats"):
+    for collection in collections:
         for path, arr in _leaves(variables.get(collection, {})):
             for tpath, a in _unstack(path, arr):
                 prefix = ".".join(tpath[:-1])
@@ -101,13 +112,21 @@ def flax_to_state_dict(model, variables):
                         f"{tuple(value.shape)}, model expects "
                         f"{tuple(target[key].shape)}")
                 out[key] = torch.from_numpy(np.array(value, np.float32))
-    missing = sorted(set(target) - set(out))
+    missing = sorted(required - set(out))
     if leftover or missing:
         raise ValueError(
             f"strict conversion failed: {len(leftover)} Flax leaves not "
             f"consumed {leftover[:10]}; {len(missing)} model entries not "
             f"assigned {missing[:10]}")
     return out
+
+
+def flax_params_to_named(model, params):
+    """A Flax tree with the structure of the model's ``params`` (the
+    parameters of a train state, or a gradient tree) -> {name: tensor}
+    under ``model.named_parameters()`` names, in torch layouts."""
+    return flax_to_state_dict(model, {"params": params},
+                              collections=("params",))
 
 
 def load_flax_variables(model, variables):

@@ -66,6 +66,20 @@ def points_to_voxel(points, voxel_size, coors_range, max_points=35,
     return voxels, coors, num_points_per_voxel
 
 
+def encode_compact_value_labels(voxel_labels, ignore_id=0):
+    """Voxel label = the single (+1-shifted) label present, else ignore.
+
+    voxel_labels: [Nv, P] int array, 0 = padding slot. Returns [Nv] labels
+    shifted back by -1 (ambiguous voxels -> ignore_id).
+    """
+    voxel_labels = np.asarray(voxel_labels)
+    pos = voxel_labels > 0
+    mx = voxel_labels.max(axis=1)
+    mixed = np.any(pos & (voxel_labels != mx[:, None]), axis=1)
+    enc = np.where(mixed | (mx == 0), ignore_id + 1, mx)
+    return (enc - 1).astype(voxel_labels.dtype)
+
+
 class VoxelGenerator:
     """API of the JAX package's VoxelGenerator, key-sorted output."""
 

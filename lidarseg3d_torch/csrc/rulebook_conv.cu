@@ -25,7 +25,10 @@
 // (50 MB) mostly holds.
 //
 // Design (simple first): one 256-thread block per tile of 64 output rows
-// and all Cout columns (Cout <= 128). For each tap it loads the tile's 64
+// and a group of up to 128 output columns (blockIdx.y picks the group, so
+// one launch serves any Cout: as dX under the transposed rulebook the
+// output width is the conv's Cin, up to 256 on the decoder's concat
+// convs). For each tap it loads the tile's 64
 // partner indices, skips the tap when every one is a miss, then walks Cin
 // in chunks of 32: the 64 partner rows and that tap's W[k] slice are staged
 // in shared memory as fp32, and each thread accumulates an 8-row x
@@ -57,7 +60,9 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-template <typename T, int NC>
+// WIDE: Cout > 128, blockIdx.y picks the group of 128 columns; otherwise
+// the column offset is the constant 0.
+template <typename T, int NC, bool WIDE = false>
 __global__ void __launch_bounds__(kThreads)
 conv_kernel(const T* __restrict__ feat, const int* __restrict__ rb,
             const T* __restrict__ w, T* __restrict__ out, int K, int M,
@@ -67,6 +72,7 @@ conv_kernel(const T* __restrict__ feat, const int* __restrict__ rb,
   __shared__ float s_w[kChunk][NC * 32];
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int m0 = blockIdx.x * kTileM;
+  const int o0 = WIDE ? blockIdx.y * NC * 32 : 0;  // the group's first column
   float acc[kRowsPerThread][NC];
 #pragma unroll
   for (int r = 0; r < kRowsPerThread; ++r)
@@ -92,8 +98,8 @@ conv_kernel(const T* __restrict__ feat, const int* __restrict__ rb,
       }
       for (int e = threadIdx.x; e < kChunk * NC * 32; e += kThreads) {
         const int c = e / (NC * 32), o = e % (NC * 32);
-        s_w[c][o] = (c0 + c < Cin && o < Cout)
-            ? to_f32(w[((long long)k * Cin + c0 + c) * Cout + o]) : 0.f;
+        s_w[c][o] = (c0 + c < Cin && o0 + o < Cout)
+            ? to_f32(w[((long long)k * Cin + c0 + c) * Cout + o0 + o]) : 0.f;
       }
       __syncthreads();
       const int cn = min(kChunk, Cin - c0);
@@ -118,7 +124,7 @@ conv_kernel(const T* __restrict__ feat, const int* __restrict__ rb,
     if (m >= M) continue;
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
-      const int o = tx + 32 * j;
+      const int o = o0 + tx + 32 * j;
       if (o < Cout) out[(long long)m * Cout + o] = from_f32<T>(acc[r][j]);
     }
   }
@@ -127,11 +133,16 @@ conv_kernel(const T* __restrict__ feat, const int* __restrict__ rb,
 template <typename T>
 int launch(const void* feat, const void* rb, const void* w, void* out, int K,
            int M, int Cin, int Cout, int miss, cudaStream_t st) {
-  const unsigned grid = (unsigned)((M + kTileM - 1) / kTileM);
+  const dim3 grid((unsigned)((M + kTileM - 1) / kTileM),
+                  (unsigned)((Cout + 127) / 128));
   const T* f = static_cast<const T*>(feat);
   const int* r = static_cast<const int*>(rb);
   const T* wt = static_cast<const T*>(w);
   T* o = static_cast<T*>(out);
+  if (Cout > 128) {  // groups of 128 columns, the last one masked
+    conv_kernel<T, 4, true><<<grid, kThreads, 0, st>>>(f, r, wt, o, K, M, Cin, Cout, miss);
+    return (int)cudaGetLastError();
+  }
   switch ((Cout + 31) / 32) {
     case 1: conv_kernel<T, 1><<<grid, kThreads, 0, st>>>(f, r, wt, o, K, M, Cin, Cout, miss); break;
     case 2: conv_kernel<T, 2><<<grid, kThreads, 0, st>>>(f, r, wt, o, K, M, Cin, Cout, miss); break;
@@ -145,11 +156,11 @@ int launch(const void* feat, const void* rb, const void* w, void* out, int K,
 }  // namespace
 
 // feat [miss + 1, Cin], rb [K, M] int32, w [K, Cin, Cout], out [M, Cout];
-// feat/w/out fp32 (bf16 = 0) or bf16 (bf16 = 1); 1 <= Cout <= 128.
+// feat/w/out fp32 (bf16 = 0) or bf16 (bf16 = 1); 1 <= Cout <= 1024.
 extern "C" int rulebook_conv(const void* feat, const void* rb, const void* w,
                              void* out, int K, int M, int Cin, int Cout,
                              int miss, int bf16, void* stream) {
-  if (M <= 0 || K <= 0 || Cin <= 0 || Cout <= 0 || Cout > 128)
+  if (M <= 0 || K <= 0 || Cin <= 0 || Cout <= 0 || Cout > 1024)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? launch<__nv_bfloat16>(feat, rb, w, out, K, M, Cin, Cout, miss, st)

@@ -90,14 +90,19 @@ class UNetSCN3D(nn.Module):
         return b
 
     def convs(self, st_in: sp.SparseTensor, b):
-        """The 36 sparse convs on the prebuilt rulebooks ``b``."""
+        """The 36 sparse convs on the prebuilt rulebooks ``b``. Strided and
+        inverse convs get each other's rulebook as the transposed one their
+        backward needs."""
         x = self.SparseConvBNReLU_0(st_in, b["subm1"])
         x_conv1 = self.SparseBasicBlockStack_0(x, b["subm1"])
-        x = self.SparseConvBNReLU_1(x_conv1, b["down2"], out_struct=b["s2"])
+        x = self.SparseConvBNReLU_1(x_conv1, b["down2"], out_struct=b["s2"],
+                                    rulebook_t=b["inv2"])
         x_conv2 = self.SparseBasicBlockStack_1(x, b["subm2"])
-        x = self.SparseConvBNReLU_2(x_conv2, b["down3"], out_struct=b["s3"])
+        x = self.SparseConvBNReLU_2(x_conv2, b["down3"], out_struct=b["s3"],
+                                    rulebook_t=b["inv3"])
         x_conv3 = self.SparseBasicBlockStack_2(x, b["subm3"])
-        x = self.SparseConvBNReLU_3(x_conv3, b["down4"], out_struct=b["s4"])
+        x = self.SparseConvBNReLU_3(x_conv3, b["down4"], out_struct=b["s4"],
+                                    rulebook_t=b["inv4"])
         x_conv4 = self.SparseBasicBlockStack_3(x, b["subm4"])
 
         def ur_block(x_lateral, x_bottom, rb_lat, lat_block, mid):
@@ -110,13 +115,16 @@ class UNetSCN3D(nn.Module):
 
         f = ur_block(x_conv4, x_conv4, b["subm4"], self.SparseBasicBlock_0,
                      self.SparseConvBNReLU_4)
-        x_up4 = self.SparseConvBNReLU_5(f, b["inv4"], out_struct=b["s3"])
+        x_up4 = self.SparseConvBNReLU_5(f, b["inv4"], out_struct=b["s3"],
+                                        rulebook_t=b["down4"])
         f = ur_block(x_conv3, x_up4, b["subm3"], self.SparseBasicBlock_1,
                      self.SparseConvBNReLU_6)
-        x_up3 = self.SparseConvBNReLU_7(f, b["inv3"], out_struct=b["s2"])
+        x_up3 = self.SparseConvBNReLU_7(f, b["inv3"], out_struct=b["s2"],
+                                        rulebook_t=b["down3"])
         f = ur_block(x_conv2, x_up3, b["subm2"], self.SparseBasicBlock_2,
                      self.SparseConvBNReLU_8)
-        x_up2 = self.SparseConvBNReLU_9(f, b["inv2"], out_struct=b["s1"])
+        x_up2 = self.SparseConvBNReLU_9(f, b["inv2"], out_struct=b["s1"],
+                                        rulebook_t=b["down2"])
         f = ur_block(x_conv1, x_up2, b["subm1"], self.SparseBasicBlock_3,
                      self.SparseConvBNReLU_10)
         x_up1 = self.SparseConvBNReLU_11(f, b["subm1"])

@@ -5,12 +5,14 @@ Resize-concat of the HRNet pyramid, num_convs 3x3 ConvBNReLUs, a 1x1
 classifier, and the camera semantic embeddings. Works in NCHW and returns
 the JAX package's NHWC layout. With ``compute_dtype`` ("bfloat16") the
 inputs are cast and the convs run in that type; the three outputs are
-always fp32, as in the JAX package.
+always fp32, as in the JAX package. ``get_loss`` is the pixel CE (and
+optional Lovász) against point-painted labels at the image resolution.
 """
 
 import torch
 from torch import nn
 
+from ...ops import losses as L
 from ...ops.resize import resize_bilinear
 from ..img_backbones.hrnet import ConvBNReLU, conv_as_input
 from ..layers import Scopes, add
@@ -42,6 +44,9 @@ class FCNMSeg3DHead(nn.Module):
                 "the port has the resize-concat FCN head only")
         self.compute_dtype = (None if compute_dtype is None
                               else getattr(torch, compute_dtype))
+        self.ignore_index = ignore_index
+        self.loss_weight = loss_weight
+        self.lovasz_loss_weight = lovasz_loss_weight
         s = Scopes()
         self.in_index = tuple(in_index)
         cin = sum(in_channels[i] for i in self.in_index)
@@ -83,3 +88,23 @@ class FCNMSeg3DHead(nn.Module):
             "camera_semantic_embeddings": camera_semantic_embeddings(
                 feats, logits, batch_size),
         }
+
+    def get_loss(self, ret, batch):
+        """Pixel CE on sparse point-painted labels: the logits are
+        upsampled to the labels' resolution. batch["images_sem_labels"]:
+        [B*ncam, H, W] int, ``ignore_index`` where unlabeled."""
+        labels = batch["images_sem_labels"]
+        logits = resize_bilinear(ret["image_logits"].permute(0, 3, 1, 2),
+                                 labels.shape[-2:]).permute(0, 2, 3, 1)
+        flat_logits = logits.reshape(-1, logits.shape[-1])
+        flat_labels = labels.reshape(-1)
+        ce = self.loss_weight * L.cross_entropy(flat_logits, flat_labels,
+                                                self.ignore_index)
+        loss, ldict = ce, {"image_ce_loss": ce}
+        if self.lovasz_loss_weight > 0:
+            lvsz = self.lovasz_loss_weight * L.lovasz_softmax(
+                torch.softmax(flat_logits, -1), flat_labels,
+                ignore=self.ignore_index)
+            loss = loss + lvsz
+            ldict["image_lvsz_loss"] = lvsz
+        return loss, ldict

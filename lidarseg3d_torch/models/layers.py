@@ -43,31 +43,57 @@ class TorchLinear(nn.Linear):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm with the JAX package's parameters (scale, bias, running
-    mean/var) on channel dim ``channel_dim``. Evaluation semantics only:
-    normalize with the running statistics, in fp32 for a bf16 input, and
-    return the input's dtype. Training-mode statistics are not ported yet
-    (ROADMAP.md, training)."""
+    """BatchNorm with validity masking and the JAX package's parameters
+    (scale, bias, running mean/var) on channel dim ``channel_dim``.
 
-    def __init__(self, num_features, eps=1e-5, channel_dim=-1):
+    In training mode the statistics run over the masked entries of all
+    other dims (``mask`` has x's shape without the channel dim; None means
+    every entry), with ``cnt = max(sum(mask), 1)``: the biased variance
+    normalizes, the unbiased one (``var * cnt / max(cnt - 1, 1)``) goes
+    into the running variance, with torch momentum semantics
+    ``running = (1 - m) * running + m * batch``; the running statistics
+    are updated in place, outside the autograd graph. In evaluation mode
+    the running statistics normalize. Statistics are computed in
+    ``promote_types(dtype, float32)`` and the input's dtype is returned.
+    The JAX package's ``sub_groups`` is its space-to-depth layout and has
+    no counterpart here."""
+
+    def __init__(self, num_features, eps=1e-5, channel_dim=-1, momentum=0.1):
         super().__init__()
         self.eps = eps
         self.channel_dim = channel_dim
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x, mask=None):
-        if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm batch statistics (training) are not "
-                "ported yet; call .eval()")
+        cd = self.channel_dim % x.dim()
         shape = [1] * x.dim()
-        shape[self.channel_dim] = -1
-        inv = torch.rsqrt(self.running_var + self.eps)
+        shape[cd] = -1
         xs = x.to(torch.promote_types(x.dtype, torch.float32))
-        y = ((xs - self.running_mean.view(shape)) * inv.view(shape)
+        if self.training:
+            dims = [d for d in range(x.dim()) if d != cd]
+            if mask is None:
+                cnt = float(max(x.numel() // x.shape[cd], 1))
+                mean = xs.sum(dims) / cnt
+                var = ((xs - mean.view(shape)) ** 2).sum(dims) / cnt
+                unbias = cnt / max(cnt - 1.0, 1.0)
+            else:
+                mf = mask.to(xs.dtype).unsqueeze(cd)
+                cnt = mf.sum().clamp(min=1.0)
+                mean = (xs * mf).sum(dims) / cnt
+                var = ((xs - mean.view(shape)) ** 2 * mf).sum(dims) / cnt
+                unbias = cnt / (cnt - 1.0).clamp(min=1.0)
+            with torch.no_grad():
+                m = self.momentum
+                rm, rv = self.running_mean, self.running_var
+                rm.mul_(1 - m).add_((m * mean).to(rm.dtype))
+                rv.mul_(1 - m).add_((m * (var * unbias)).to(rv.dtype))
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = ((xs - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
              * self.weight.view(shape) + self.bias.view(shape))
         return y.to(x.dtype)
 

@@ -1,6 +1,8 @@
 """MSeg3D multimodal fusion point head (PyTorch port of
-lidarseg3d_tpu/models/point_heads/mseg3d_head.py:123 PointSegMSeg3DHead,
-evaluation path: dropout is the identity, BN uses running statistics).
+lidarseg3d_tpu/models/point_heads/mseg3d_head.py:123 PointSegMSeg3DHead).
+In training mode the voxel features pass a dropout drawn from an explicit
+``torch.Generator`` and every BN takes masked batch statistics;
+``get_loss`` gives the five point-head losses.
 
 Voxel aux classifier, 3-NN devoxelization, camera features by bilinear
 point-to-pixel sampling, cross-modal completion (mimic MLP), GF-Phase
@@ -16,6 +18,7 @@ from torch import nn
 
 from ...ops import grid_sample as gs
 from ...ops import interpolate as interp
+from ...ops import losses as L
 from ..layers import MaskedBatchNorm, MLPHead, TorchLinear
 from ..registry import POINT_HEADS
 
@@ -127,12 +130,17 @@ class PointSegMSeg3DHead(nn.Module):
                  voxel_size=(), point_cloud_range=()):
         super().__init__()
         cfg = dict(model_cfg or {})
-        if cfg.get("OOV_COMPLETION", "pseudo_camera") != "pseudo_camera":
-            raise NotImplementedError("OOV_COMPLETION other than "
-                                      "pseudo_camera")
+        # what out-of-view points carry downstream: "pseudo_camera", the
+        # mimicked features (the MSeg3D paper), or "zero" (the released
+        # code: zeros, the mimic MLP serving its loss only)
+        self.oov = cfg.get("OOV_COMPLETION", "pseudo_camera")
+        if self.oov not in ("pseudo_camera", "zero"):
+            raise NotImplementedError(f"OOV_COMPLETION {self.oov!r}")
+        self.dp_ratio = float(cfg.get("DP_RATIO", 0))
+        self.ignored_label = cfg.get("IGNORED_LABEL", 0)
+        self.n_cls = n_cls = 1 if class_agnostic else num_class
         self.voxel_size = tuple(voxel_size)
         self.point_cloud_range = tuple(point_cloud_range)
-        n_cls = 1 if class_agnostic else num_class
         c_vox, c_img = cfg["VOXEL_IN_DIM"], cfg["IMAGE_IN_DIM"]
         a_vox, a_img = cfg["VOXEL_ALIGN_DIM"], cfg["IMAGE_ALIGN_DIM"]
         geo = cfg["GEO_FUSED_DIM"]
@@ -150,13 +158,24 @@ class PointSegMSeg3DHead(nn.Module):
             n_layer=sf["n_layer"], n_ffn=sf["n_ffn"])
         self.TorchLinear_3 = TorchLinear(sf["d_model"], num_class)
 
-    def forward(self, batch):
+    def forward(self, batch, generator=None):
+        """``generator``: the torch.Generator (on the features' device)
+        the training-mode dropout draws from; unused in evaluation."""
         feats = batch["conv_point_features"]  # [B, V, C_vox]
         struct = batch["conv_structure"]
         vmask = struct.valid_mask()
         pvalid = batch["point_valid"]
 
-        voxel_logits = self.MLPHead_0(feats, mask=vmask)
+        # voxel aux head (+ dropout)
+        x = feats
+        if self.training and self.dp_ratio > 0:
+            if generator is None:
+                raise ValueError("training with DP_RATIO > 0 needs an "
+                                 "explicit torch.Generator")
+            keep = torch.rand(x.shape, generator=generator, device=x.device,
+                              dtype=x.dtype) >= self.dp_ratio
+            x = x * keep / (1.0 - self.dp_ratio)
+        voxel_logits = self.MLPHead_0(x, mask=vmask)
 
         # devoxelization -> point lidar features
         p_lidar0 = interp.grid_three_interpolate(
@@ -180,7 +199,10 @@ class PointSegMSeg3DHead(nn.Module):
         # cross-modal completion: out-of-view points carry the pseudo-camera
         # features (the MSeg3D paper's completion)
         p_pcam = self.MLPHead_1(p_lidar, mask=in_view)
-        p_ccam = torch.where(in_view[..., None], p_cam, p_pcam)
+        if self.oov == "zero":
+            p_ccam = torch.where(in_view[..., None], p_cam, 0.0)
+        else:
+            p_ccam = torch.where(in_view[..., None], p_cam, p_pcam)
         p_ccam = p_ccam * pvalid[..., None]
 
         # GF-Phase
@@ -197,6 +219,37 @@ class PointSegMSeg3DHead(nn.Module):
             "point_features_pcamera": p_pcam,
             "point_features_camera": p_cam,
             "in_view": in_view,
+        }
+
+    def get_loss(self, ret, batch):
+        """Voxel CE + Lovász, point CE + Lovász, and the mimic MSE on
+        in-view points (camera side detached) -> (loss, dict of terms)."""
+        ignored, n_cls = self.ignored_label, self.n_cls
+        vl = ret["voxel_logits"].reshape(-1, n_cls)
+        vlab = batch["voxel_sem_labels"].reshape(-1)
+        vval = batch["voxel_valid"].reshape(-1)
+        voxel_ce = L.cross_entropy(vl, vlab, ignored, valid=vval)
+        voxel_lvsz = L.lovasz_softmax(torch.softmax(vl, -1), vlab,
+                                      ignore=ignored, valid=vval)
+
+        ol = ret["out_logits"].reshape(-1, n_cls)
+        plab = batch["point_sem_labels"].reshape(-1)
+        pval = batch["point_valid"].reshape(-1)
+        out_ce = L.cross_entropy(ol, plab, ignored, valid=pval)
+        out_lvsz = L.lovasz_softmax(torch.softmax(ol, -1), plab,
+                                    ignore=ignored, valid=pval)
+
+        iv = ret["in_view"][..., None].to(ol.dtype)
+        diff = (ret["point_features_pcamera"]
+                - ret["point_features_camera"].detach()) * iv
+        mimic = (diff ** 2).sum() / (iv.sum() * diff.shape[-1]).clamp(
+            min=1.0)
+
+        loss = voxel_ce + voxel_lvsz + out_ce + out_lvsz + mimic
+        return loss, {
+            "voxel_ce_loss": voxel_ce, "voxel_lovasz_loss": voxel_lvsz,
+            "out_ce_loss": out_ce, "out_lovasz_loss": out_lvsz,
+            "out_mimic_loss": mimic,
         }
 
     @staticmethod

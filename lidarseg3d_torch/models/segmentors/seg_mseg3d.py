@@ -1,10 +1,12 @@
 """SegMSeg3DNet: LiDAR + multi-camera segmentor (PyTorch port of
-lidarseg3d_tpu/models/segmentors/seg_mseg3d.py:18, inference forward).
+lidarseg3d_tpu/models/segmentors/seg_mseg3d.py:18).
 
-The forward runs under ``torch.inference_mode()``: camera branch (HRNet ->
-FCN head with semantic embeddings), lidar branch (VFE -> structures and
-rulebooks -> sparse UNet convs), then the fusion point head. The three
-stages are separate methods so a caller can time them.
+Camera branch (HRNet -> FCN head with semantic embeddings), lidar branch
+(VFE -> structures and rulebooks -> sparse UNet convs), then the fusion
+point head; the total loss is the point losses plus the image losses. The
+three stages are separate methods so a caller can time them. In evaluation
+mode the forward runs under ``torch.inference_mode()``; in training mode
+it builds the autograd graph.
 """
 
 import torch
@@ -48,22 +50,33 @@ class SegMSeg3DNet(nn.Module):
                                     example["input_shape"])
         return sp.SparseTensor(structure=struct, features=feats)
 
-    def head(self, example, bb_out, img_out):
+    def head(self, example, bb_out, img_out, generator=None):
         batch = dict(example)
         batch.update(bb_out)
         batch.update(img_out)
-        ret = self.point_head_mod(batch)
+        ret = self.point_head_mod(batch, generator=generator)
         ret["image_logits"] = img_out["image_logits"]
         return ret, batch
 
-    @torch.inference_mode()
-    def forward(self, example):
+    def forward(self, example, generator=None):
         """example: the collated batch on the model's device (see
         synthetic.example_to_device). Returns (ret, batch) like the JAX
-        package's ``apply(..., train=False)``."""
-        img_out = self.image_branch(example)
-        bb_out = self.backbone_mod(self.lidar_input(example))
-        return self.head(example, bb_out, img_out)
+        package's ``apply(..., train=self.training)``; ``generator`` feeds
+        the point head's training-mode dropout."""
+        with torch.inference_mode(not self.training):
+            img_out = self.image_branch(example)
+            bb_out = self.backbone_mod(self.lidar_input(example))
+            return self.head(example, bb_out, img_out, generator)
+
+    def loss(self, ret, batch):
+        """Point-head losses + image-head losses -> (total, dict of every
+        term and "loss")."""
+        point_loss, ldict = self.point_head_mod.get_loss(ret, batch)
+        img_loss, img_ldict = self.img_head_mod.get_loss(ret, batch)
+        ldict.update(img_ldict)
+        total = point_loss + img_loss
+        ldict["loss"] = total
+        return total, ldict
 
     @torch.inference_mode()
     def predict(self, ret, batch, test_cfg=None):

@@ -30,18 +30,25 @@ class SubMConv3d(_SparseConvBase):
 
 
 class SparseConv3d(_SparseConvBase):
-    """Strided conv onto a precomputed downsampled structure."""
+    """Strided conv onto a precomputed downsampled structure;
+    ``rulebook_t`` is the paired inverse rulebook (backward)."""
 
-    def forward(self, st: sp.SparseTensor, out_struct, rulebook):
-        out = sp.strided_conv(st, self.weight, rulebook)
+    def forward(self, st: sp.SparseTensor, out_struct, rulebook,
+                rulebook_t=None):
+        out = sp.strided_conv(st, self.weight, rulebook, rulebook_t)
         return sp.SparseTensor(structure=out_struct, features=out)
 
 
 class SparseInverseConv3d(_SparseConvBase):
-    def forward(self, st_low: sp.SparseTensor, target_struct, rulebook):
-        out = sp.inverse_conv(st_low, self.weight, rulebook)
+    """``rulebook_t`` is the paired strided rulebook (backward)."""
+
+    def forward(self, st_low: sp.SparseTensor, target_struct, rulebook,
+                rulebook_t=None):
+        out = sp.inverse_conv(st_low, self.weight, rulebook, rulebook_t)
         return sp.SparseTensor(structure=target_struct, features=out)
 
+
+BN_MOMENTUM = 0.01  # every BN of the sparse backbone (the JAX package's)
 
 _CONV_TYPES = {"subm": SubMConv3d, "spconv": SparseConv3d,
                "inverseconv": SparseInverseConv3d}
@@ -60,15 +67,16 @@ class SparseConvBNReLU(nn.Module):
         self.parts = [
             add(self, s, _CONV_TYPES[conv_type](in_features, features,
                                                 kernel_size)),
-            add(self, s, MaskedBatchNorm(features, eps=bn_eps)),
+            add(self, s, MaskedBatchNorm(features, eps=bn_eps,
+                                         momentum=BN_MOMENTUM)),
         ]
 
-    def forward(self, st, rulebook, out_struct=None):
+    def forward(self, st, rulebook, out_struct=None, rulebook_t=None):
         conv, bn = self.parts
         if self.conv_type == "subm":
             out = conv(st, rulebook)
         else:
-            out = conv(st, out_struct, rulebook)
+            out = conv(st, out_struct, rulebook, rulebook_t)
         f = bn(out.features, mask=out.valid_mask())
         return sp.SparseTensor(structure=out.structure, features=F.relu(f))
 
@@ -79,9 +87,11 @@ class SparseBasicBlock(nn.Module):
     def __init__(self, features, bn_eps=1e-3):
         super().__init__()
         self.SubMConv3d_0 = SubMConv3d(features, features)
-        self.MaskedBatchNorm_0 = MaskedBatchNorm(features, bn_eps)
+        self.MaskedBatchNorm_0 = MaskedBatchNorm(features, bn_eps,
+                                                 momentum=BN_MOMENTUM)
         self.SubMConv3d_1 = SubMConv3d(features, features)
-        self.MaskedBatchNorm_1 = MaskedBatchNorm(features, bn_eps)
+        self.MaskedBatchNorm_1 = MaskedBatchNorm(features, bn_eps,
+                                                 momentum=BN_MOMENTUM)
 
     def forward(self, st: sp.SparseTensor, rulebook):
         mask = st.valid_mask()

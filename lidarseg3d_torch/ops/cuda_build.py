@@ -28,6 +28,7 @@ SOURCES = {
     "rank_lookup": "rank_lookup.cu",
     "merge_lookup": "merge_lookup.cu",
     "rulebook_conv": "rulebook_conv.cu",
+    "rulebook_conv_dw": "rulebook_conv_dw.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

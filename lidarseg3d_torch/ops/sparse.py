@@ -15,7 +15,8 @@ package; ``rule="union"`` gives spconv's receptive-field union.
 Kernels on this path: the rank-table lookup (rulebook builds on a
 RankTable), the sorted-keys merge lookup (rulebook builds on a KeyTable),
 both through ``lookup_rank3_cells``, and the fused rulebook conv (every
-conv).
+conv: forward, dX under the transposed rulebook and dW, through
+``rulebook_conv.RulebookConvFn``).
 """
 
 from dataclasses import dataclass
@@ -25,7 +26,7 @@ import torch
 from . import coords as coord_ops
 from .merge_lookup import merge_cells
 from .rank_lookup import gather_cells
-from .rulebook_conv import rulebook_conv
+from .rulebook_conv import RulebookConvFn
 
 
 def _triple(v):
@@ -386,25 +387,41 @@ def build_inverse_rulebook(s_low: SparseStructure,
     return out.reshape(kz * ky * 3, *out.shape[2:]).to(torch.int32)
 
 
-def _conv(features, weights, rulebook):
-    return rulebook_conv(flat_features(features), rulebook.contiguous(),
-                         weights)
+def _conv(features, weights, rulebook, rulebook_t=None):
+    return RulebookConvFn.apply(
+        flat_features(features), weights, rulebook.contiguous(),
+        None if rulebook_t is None else rulebook_t.contiguous())
 
 
 def subm_conv(st: SparseTensor, weights, rulebook):
     """Submanifold sparse conv: output sites == input sites.
-    weights [K, Cin, Cout]; rulebook [K, B, V] -> features [B, V, Cout]."""
+    weights [K, Cin, Cout]; rulebook [K, B, V] -> features [B, V, Cout].
+    Its transposed rulebook (backward) is its own, taps mirrored."""
     return _conv(st.features, weights, rulebook)
 
 
-def strided_conv(st: SparseTensor, weights, rulebook):
-    """Strided sparse conv onto a precomputed output structure."""
-    return _conv(st.features, weights, rulebook)
+def strided_conv(st: SparseTensor, weights, rulebook, rulebook_t=None):
+    """Strided sparse conv onto a precomputed output structure.
+    ``rulebook_t`` is the paired inverse rulebook, needed only when a
+    gradient flows back through the conv."""
+    return _conv(st.features, weights, rulebook, _paired(rulebook_t, st,
+                                                         weights))
 
 
-def inverse_conv(st_low: SparseTensor, weights, rulebook):
-    """Inverse sparse conv back onto a stored high-resolution structure."""
-    return _conv(st_low.features, weights, rulebook)
+def inverse_conv(st_low: SparseTensor, weights, rulebook, rulebook_t=None):
+    """Inverse sparse conv back onto a stored high-resolution structure.
+    ``rulebook_t`` is the paired strided rulebook, needed only when a
+    gradient flows back through the conv."""
+    return _conv(st_low.features, weights, rulebook,
+                 _paired(rulebook_t, st_low, weights))
+
+
+def _paired(rulebook_t, st, weights):
+    if rulebook_t is None and torch.is_grad_enabled() and (
+            st.features.requires_grad or weights.requires_grad):
+        raise ValueError("a strided or inverse conv under autograd needs "
+                         "its paired rulebook (rulebook_t)")
+    return rulebook_t
 
 
 def voxel_centers(st_struct: SparseStructure, voxel_size, point_cloud_range):

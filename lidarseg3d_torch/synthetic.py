@@ -15,7 +15,7 @@ the 0.1 m nuScenes grid (Z, Y, X) = (41, 1024, 1024), six cameras at
 import numpy as np
 import torch
 
-from .core.voxelize import VoxelGenerator
+from .core.voxelize import VoxelGenerator, encode_compact_value_labels
 from .datasets.batching import collate_segnet
 
 PCR = (-25.6, -25.6, -4.0, 25.6, 25.6, 2.0)
@@ -34,8 +34,12 @@ def grid_shape(pcr=None, vsz=None):
     return (int(grid[2]) + 1, int(grid[1]), int(grid[0]))
 
 
-def synthetic_batch(B, V, N, P=5, seed=0, pcr=None, vsz=None):
-    """Plausible LiDAR scan: ground plane + clutter, voxelized on host."""
+def synthetic_batch(B, V, N, P=5, seed=0, with_labels=False, pcr=None,
+                    vsz=None):
+    """Plausible LiDAR scan: ground plane + clutter, voxelized on host.
+    ``with_labels`` draws a class in [0, 20) per point and adds
+    ``point_sem_labels`` and ``voxel_sem_labels`` (the single label of a
+    voxel's points, else the ignored label 0)."""
     pcr = list(pcr or PCR)
     vsz = list(vsz or VSZ)
     r = 0.98 * min(-pcr[0], pcr[3])
@@ -53,9 +57,19 @@ def synthetic_batch(B, V, N, P=5, seed=0, pcr=None, vsz=None):
             rng.uniform(-1.5, 1.5, n - n // 2), rng.uniform(0, 1, n - n // 2),
         ], 1)
         pts = np.concatenate([ground, objs]).astype(np.float32)
-        voxels, coords, npts = vg.generate(pts)
-        frames.append({"voxels": voxels[:, :, :4], "coordinates": coords,
-                       "num_points_per_voxel": npts, "points": pts})
+        src = pts
+        if with_labels:
+            labels = rng.integers(0, 20, size=n).astype(np.int32)
+            src = np.concatenate(
+                [pts, labels[:, None].astype(np.float32) + 1], 1)
+        voxels, coords, npts = vg.generate(src)
+        fr = {"voxels": voxels[:, :, :4], "coordinates": coords,
+              "num_points_per_voxel": npts, "points": pts}
+        if with_labels:
+            fr["voxel_sem_labels"] = encode_compact_value_labels(
+                voxels[:, :, 4].astype(np.int64)).astype(np.int32)
+            fr["point_sem_labels"] = labels
+        frames.append(fr)
     return collate_segnet(frames, max_voxels=V, max_points=N)
 
 
@@ -128,10 +142,12 @@ def mseg3d_model_cfg(num_class=20, ratio=2, img_hw=(384, 1280),
 
 
 def synthetic_mseg3d_batch(B, V, N, img_hw=(384, 1280), ncam=1, seed=0,
-                           pcr=None, vsz=None):
-    """SegNet batch + synthetic camera images and point->pixel projections."""
+                           with_labels=False, pcr=None, vsz=None):
+    """SegNet batch + synthetic camera images and point->pixel projections
+    (+ ``images_sem_labels`` [B*ncam, H, W] with ``with_labels``)."""
     rng = np.random.default_rng(seed)
-    batch = synthetic_batch(B, V, N, seed=seed, pcr=pcr, vsz=vsz)
+    batch = synthetic_batch(B, V, N, seed=seed, with_labels=with_labels,
+                            pcr=pcr, vsz=vsz)
     H, W = img_hw
     batch["images"] = rng.uniform(
         -2, 2, size=(B, ncam, H, W, 3)).astype(np.float32)
@@ -145,13 +161,18 @@ def synthetic_mseg3d_batch(B, V, N, img_hw=(384, 1280), ncam=1, seed=0,
     cuv[:, :, 2] = rng.uniform(-1, 1, (B, Np))  # norm v
     cuv[:, :, 3] = rng.uniform(-1, 1, (B, Np))  # norm u
     batch["points_cuv"] = cuv
+    if with_labels:
+        batch["images_sem_labels"] = rng.integers(
+            0, 20, size=(B * ncam, H, W)).astype(np.int32)
     return batch
 
 
-def example_to_device(batch, device, input_shape):
+def example_to_device(batch, device, input_shape=None):
     """Collated numpy batch -> dict of tensors on ``device`` (metadata
-    dropped) with the static ``input_shape`` (Z, Y, X) attached."""
+    dropped), with the static ``input_shape`` (Z, Y, X) attached when one
+    is given."""
     ex = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
           for k, v in batch.items() if k != "metadata"}
-    ex["input_shape"] = tuple(int(s) for s in input_shape)
+    if input_shape is not None:
+        ex["input_shape"] = tuple(int(s) for s in input_shape)
     return ex

@@ -1,6 +1,7 @@
-"""Hygiene of the port: lidarseg3d_torch and chip_smoke.py import nothing
-of JAX, Flax, the JAX package or __graft_entry__, and the entry point runs
-on cuda unless told otherwise."""
+"""Hygiene of the port: lidarseg3d_torch (its solver, apis and losses
+included) and chip_smoke.py import nothing of JAX, Flax, optax, the JAX
+package or __graft_entry__, and the entry point runs on cuda unless told
+otherwise."""
 
 import ast
 from pathlib import Path
@@ -9,7 +10,10 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "lidarseg3d_tpu", "__graft_entry__")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "lidarseg3d_tpu",
+             "__graft_entry__")
+TRAINING_MODULES = ("solver/optim.py", "apis/train.py", "ops/losses.py",
+                    "ops/rulebook_conv.py")
 
 
 def _files():
@@ -28,6 +32,8 @@ def _imports(path):
 def test_port_imports_no_jax():
     files = _files()
     assert len(files) > 20
+    listed = {str(p.relative_to(ROOT / "lidarseg3d_torch")) for p in files[:-1]}
+    assert set(TRAINING_MODULES) <= listed, set(TRAINING_MODULES) - listed
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imports(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -53,3 +59,25 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
 
     with pytest.raises(ValueError):
         pack_rank_table(torch.zeros(8, dtype=torch.int8, device="meta"))
+
+
+@pytest.mark.parametrize("name", ["rulebook_conv", "rulebook_conv_dw"])
+def test_conv_wrappers_refuse_other_devices(name):
+    """The conv's forward and dW wrappers launch a kernel or raise: a
+    tensor that is neither on the CPU nor on a CUDA device is refused."""
+    from lidarseg3d_torch.ops import rulebook_conv as rc
+
+    feat = torch.zeros(9, 4, device="meta")
+    rb = torch.zeros(27, 1, 8, dtype=torch.int32, device="meta")
+    other = torch.zeros(27, 4, 4, device="meta") if name == "rulebook_conv" \
+        else torch.zeros(8, 4, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(rc, name)(feat, rb, other)
+
+
+def test_every_kernel_source_is_registered():
+    from lidarseg3d_torch.ops import cuda_build
+
+    on_disk = {p.name for p in cuda_build.CSRC.glob("*.cu")}
+    assert on_disk == set(cuda_build.SOURCES.values())
+    assert len(on_disk) == 5
