@@ -67,9 +67,15 @@ DEV = "cuda"
 NSCANS = 3
 BIG_GRID = (41, 1504, 1504)  # the 0.1 m SemanticKITTI grid (Z, Y, X)
 # H100 SXM published peaks (NVIDIA's data sheet, dense, at 700 W): HBM
-# bytes/s and FLOP/s per input type
+# bytes/s and FLOP/s per input type. The conv kernels run fp32 on the tensor
+# cores as 3xTF32 (three TF32 products per product, 495 TFLOP/s), the least
+# time of an fp32-accurate product there; fp32 outside the tensor cores
+# (67 TFLOP/s) is the second fp32 bound each conv row prints
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+PEAK_FLOPS = {"fp32": 495e12 / 3, "bf16": 989e12}
+PEAK_FP32_SIMT = 67e12
+# kernel names of the conv and dW launches in a profile (phase 5)
+CONV_KERNELS = ("conv_kernel", "conv_reduce", "dw_kernel", "dw_reduce")
 TOL_CONV = {"fp32": 1e-5, "bf16": 2.0 ** -7}  # max |err| / max |plain|
 # dW sums up to 262,144 products per entry in fp32 on both sides (the
 # products of bf16 inputs are exact in fp32), in another order than the
@@ -221,11 +227,39 @@ def fmt_times(row):
            f"(device {row['library_device_ms']:.4f})")
     return (f"ms={row['ms']:.4f} (device {row['device_ms']:.4f}) "
             f"plain_ms={row['plain_ms']:.4f} (device "
-            f"{row['plain_device_ms']:.4f}){lib} "
-            f"bound_ms={row['bound_ms']:.4f}")
+            f"{row['plain_device_ms']:.4f}){lib}{fmt_bounds(row)}")
 
 
-def check_conv(report, name, feats, rb, cin, cout, gen):
+def bounds(dt, nbytes, flops):
+    """The bound keys of a conv or dW row: ``bound_ms`` over the bytes and
+    the operations at PEAK_FLOPS (3xTF32 for fp32), and for fp32 also the
+    bound at 67 TFLOP/s outside the tensor cores."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dt]
+    b = dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+             bound_by="bytes" if t_bytes >= t_ops else "operations")
+    if dt == "fp32":
+        t_simt = flops / PEAK_FP32_SIMT
+        b.update(bound_fp32_simt_ms=max(t_bytes, t_simt) * 1e3,
+                 bound_fp32_simt_by="bytes" if t_bytes >= t_simt
+                 else "operations")
+    return b
+
+
+def fmt_bounds(row):
+    s = f" bound_ms={row['bound_ms']:.4f} ({row['bound_by']}"
+    if "bound_fp32_simt_ms" in row:
+        s += (f", 3xTF32; at 67 TFLOP/s {row['bound_fp32_simt_ms']:.4f} "
+              f"{row['bound_fp32_simt_by']}")
+    return s + ")"
+
+
+def check_conv(report, name, feats, rb, cin, cout, gen, dx=False):
+    """rulebook_conv against rulebook_conv_plain in fp32 and bf16, twice
+    (bit-identical reruns). feats [B, Vin, cin]. With ``dx`` the call is
+    the data gradient's, as RulebookConvFn.backward makes it: feats is the
+    cotangent (no zero row, miss = its row count), rb the transposed
+    rulebook (a subm one is read with its taps mirrored), w read as
+    [K, cout, cin] transposed, and a zero row appended to the output."""
     import torch
     from lidarseg3d_torch.ops import sparse as sp
     from lidarseg3d_torch.ops.rulebook_conv import (rulebook_conv,
@@ -235,38 +269,51 @@ def check_conv(report, name, feats, rb, cin, cout, gen):
     w32 = (torch.rand(K, cin, cout, generator=gen) * 2 - 1).to(DEV) \
         / (K * cin) ** 0.5
     miss = feats.shape[0] * feats.shape[1]
+    flip = dx and rb.shape[2] == feats.shape[1]  # subm: its own transpose
+    kw = dict(flip_taps=flip, w_t=True, miss=miss, zero_row=True) \
+        if dx else {}
     hit = rb != miss
     pairs = int(hit.sum())
-    # feature rows the function must read: the distinct partner rows plus
-    # the zero row of misses (capacity rows no entry names are never read)
-    rows = int(torch.unique(rb[hit]).numel()) + 1
+    # feature rows the function must read: the distinct partner rows, plus
+    # the zero row of misses in the forward (capacity rows no entry names
+    # are never read; dX reads no row for a miss)
+    rows = int(torch.unique(rb[hit]).numel()) + (0 if dx else 1)
+    M = rb.shape[1] * rb.shape[2]
     for dt, torch_dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-        ff = sp.flat_features(feats.to(torch_dt))
-        w = w32.to(torch_dt).contiguous()
-        got = rulebook_conv(ff, rb, w).float()
-        want = rulebook_conv_plain(ff, rb, w).float()
+        if dx:
+            ff = feats.reshape(miss, cin).to(torch_dt).contiguous()
+            w = w32.to(torch_dt).transpose(1, 2).contiguous()
+        else:
+            ff = sp.flat_features(feats.to(torch_dt))
+            w = w32.to(torch_dt).contiguous()
+        got = rulebook_conv(ff, rb, w, **kw)
+        again = rulebook_conv(ff, rb, w, **kw)
+        want = rulebook_conv_plain(ff, rb, w, **kw).float()
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise SystemExit(f"rulebook_conv {name} {dt}: two runs on the "
+                             "same inputs differ")
+        got = got.float()
         err = float((got - want).abs().max())
         scale = max(float(want.abs().max()), 1e-30)
-        ok = err <= TOL_CONV[dt] * scale
+        ok = err <= TOL_CONV[dt] * scale and got.shape == want.shape \
+            and not (dx and got[-1].any())
         es = 4 if dt == "fp32" else 2
         nbytes = (rows * cin * es + rb.numel() * 4 + w.numel() * es
-                  + rb.shape[1] * rb.shape[2] * cout * es)
-        flops = 2.0 * pairs * cin * cout
-        t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dt]
+                  + (M + int(dx)) * cout * es)
         row = dict(
             name=f"rulebook_conv[{name} {cin}->{cout} {dt}]", route="cuda",
             source="lidarseg3d_torch/csrc/rulebook_conv.cu",
             replaces="lidarseg3d_tpu/ops/pallas_conv.py:215",
             launches=None, max_abs_err=err,
-            bound_ms=max(t_bytes, t_ops) * 1e3,
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            **timings(lambda: rulebook_conv(ff, rb, w),
-                      lambda: rulebook_conv_plain(ff, rb, w), plain_reps=5))
-        log(f"  conv {name} {cin}->{cout} {dt}: M={rb.shape[1]*rb.shape[2]} "
-            f"pairs={pairs} rows read={rows} max_abs_err={err:.3e} "
-            f"(max|plain|={scale:.3e}, tol {TOL_CONV[dt]:.1e} rel) "
-            f"{fmt_times(row)}")
+            **bounds(dt, nbytes, 2.0 * pairs * cin * cout),
+            **timings(lambda: rulebook_conv(ff, rb, w, **kw),
+                      lambda: rulebook_conv_plain(ff, rb, w, **kw),
+                      plain_reps=5))
+        log(f"  conv {name} {cin}->{cout} {dt}: M={M} pairs={pairs} rows "
+            f"read={rows} max_abs_err={err:.3e} (max|plain|={scale:.3e}, "
+            f"tol {TOL_CONV[dt]:.1e} rel) bit-identical rerun"
+            f"{', zero row zero' if dx else ''} {fmt_times(row)}")
         if not ok:
             raise SystemExit(f"rulebook_conv {name} {dt} disagrees with its "
                              f"plain version: {err} > {TOL_CONV[dt]}*{scale}")
@@ -309,15 +356,12 @@ def check_dw(report, name, feats, rb, cin, cout, gen):
         es = 4 if dt == "fp32" else 2
         nbytes = (rows * cin * es + rb.numel() * 4 + grows * cout * es
                   + K * cin * cout * 4)
-        flops = 2.0 * pairs * cin * cout
-        t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dt]
         row = dict(
             name=f"rulebook_conv_dw[{name} {cin}->{cout} {dt}]", route="cuda",
             source="lidarseg3d_torch/csrc/rulebook_conv_dw.cu",
             replaces="lidarseg3d_tpu/ops/pallas_conv.py:250",
             launches=None, max_abs_err=err,
-            bound_ms=max(t_bytes, t_ops) * 1e3,
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            **bounds(dt, nbytes, 2.0 * pairs * cin * cout),
             **timings(lambda: rulebook_conv_dw(ff, rb, g),
                       lambda: rulebook_conv_dw_plain(ff, rb, g),
                       plain_reps=5))
@@ -500,11 +544,11 @@ def kernel_checks(runs):
         check_dw(report, f"inverse B={B} {c4}->{c3}", rnd(c4, 128),
                  tb["inv4"], 128, 128, gen)
         check_conv(report, f"dX of subm 32->32 B={B} V={V1}", rnd(V1, 32),
-                   tb["subm1"].flip(0).contiguous(), 32, 32, gen)
+                   tb["subm1"], 32, 32, gen, dx=True)
         check_conv(report, f"dX of strided 32->64 B={B} {c2}->{V1}",
-                   rnd(c2, 64), tb["inv2"], 64, 32, gen)
+                   rnd(c2, 64), tb["inv2"], 64, 32, gen, dx=True)
         check_conv(report, f"dX of subm 256->128 B={B} V={c4}", rnd(c4, 128),
-                   tb["subm4"].flip(0).contiguous(), 128, 256, gen)
+                   tb["subm4"], 128, 256, gen, dx=True)
         del tb, tst
 
         # lookup + pack on the stage-1 table of this scan
@@ -970,7 +1014,7 @@ def profile_call(fn, what, top=12):
     """fn() under torch.profiler: the share of its span in which a kernel
     ran on the card, and the kernels that took the most device time.
     Returns the busy share (None when the profiler recorded no device
-    activity)."""
+    activity) and {kernel name: (device us, launches)}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -983,7 +1027,7 @@ def profile_call(fn, what, top=12):
     kern = [e for e in events if e.device_type == DeviceType.CUDA]
     if not kern:
         log("  profile: no device activity recorded; busy share not measured")
-        return None
+        return None, {}
     t0 = min(e.time_range.start for e in events)
     t1 = max(e.time_range.end for e in events)
     busy, cur_s, cur_e = 0.0, None, None
@@ -1006,7 +1050,36 @@ def profile_call(fn, what, top=12):
                                    key=lambda kv: -kv[1][0])[:top]:
         log(f"    {tot / 1e3:8.3f} ms {100 * tot / busy:5.1f}% x{cnt:<5d} "
             f"{name[:90]}")
-    return share
+    return share, per_name
+
+
+def conv_kernel_sums(per_name):
+    """The device time and launches of every kernel name the conv and dW
+    wrappers launch (CONV_KERNELS) in one profile, with the conv (forward
+    and dX: conv_kernel + conv_reduce) and dW (dw_kernel + dw_reduce)
+    totals. A wrapper call is one counted launch but may be two kernels."""
+    import re
+
+    pat = re.compile(r"\(anonymous namespace\)::(%s)\b" % "|".join(
+        CONV_KERNELS))
+    rows, tot = [], {"conv": [0.0, 0], "dw": [0.0, 0]}
+    for name, (us, cnt) in sorted(per_name.items(), key=lambda kv: -kv[1][0]):
+        m = pat.search(name)
+        if m is None:
+            continue
+        rows.append(dict(name=name[m.start(1):].split("(")[0],
+                         ms=us / 1e3, launches=cnt))
+        t = tot["dw" if m.group(1).startswith("dw") else "conv"]
+        t[0] += us / 1e3
+        t[1] += cnt
+        log(f"    {us / 1e3:8.3f} ms x{cnt:<5d} {rows[-1]['name']}")
+    log(f"    conv (forward + dX) {tot['conv'][0]:.3f} ms over "
+        f"{tot['conv'][1]} kernels; dW {tot['dw'][0]:.3f} ms over "
+        f"{tot['dw'][1]} kernels; together "
+        f"{tot['conv'][0] + tot['dw'][0]:.3f} ms")
+    return dict(kernels=rows, conv_ms=tot["conv"][0],
+                conv_kernels=tot["conv"][1], dw_ms=tot["dw"][0],
+                dw_kernels=tot["dw"][1])
 
 
 def main():
@@ -1057,8 +1130,11 @@ def main():
             def fn(r=r):
                 ret, bat = r["model"](r["ex0"])
                 r["model"].predict(ret, bat)
-        r["result"]["device_busy_share"] = profile_call(
+        share, per_name = profile_call(
             fn, "train step" if name == "train" else "scan")
+        log("  its conv and dW kernels (device time, launches):")
+        r["result"]["device_busy_share"] = share
+        r["result"]["conv_kernels"] = conv_kernel_sums(per_name)
     log(json.dumps({"main_path": {n: r["result"] for n, r in runs.items()},
                     "seconds": time.perf_counter() - t_start}))
     log(card)

@@ -4,8 +4,9 @@ Each source under ``lidarseg3d_torch/csrc/`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into its own shared library with a plain C interface
 and loaded with ``ctypes``; no PyTorch headers are involved, so a build
 takes seconds. Libraries land in ``lidarseg3d_torch/build/`` (listed in
-``.gitignore``) under a name that carries a hash of the source, so an
-edited source is rebuilt and an unchanged one is reused. ``build()``
+``.gitignore``) under a name that carries a hash of the source and of the
+shared headers (``csrc/*.cuh``), so an edited source is rebuilt and an
+unchanged one is reused. ``build()``
 starts one ``nvcc`` per missing library, all at once.
 
 Nothing here runs at import time: the CPU tests import every module.
@@ -50,6 +51,7 @@ def _nvcc():
 
 def library_path(name):
     src = (CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD / f"lib{name}-{digest[:16]}.so"
 

@@ -1,5 +1,5 @@
 """Hygiene of the port: lidarseg3d_torch (its solver, apis and losses
-included) and chip_smoke.py import nothing of JAX, Flax, optax, the JAX
+included), chip_smoke.py and profile_convs.py import nothing of JAX, Flax, optax, the JAX
 package or __graft_entry__, and the entry point runs on cuda unless told
 otherwise."""
 
@@ -14,11 +14,12 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "lidarseg3d_tpu",
              "__graft_entry__")
 TRAINING_MODULES = ("solver/optim.py", "apis/train.py", "ops/losses.py",
                     "ops/rulebook_conv.py")
+SCRIPTS = ("chip_smoke.py", "profile_convs.py")
 
 
 def _files():
     return sorted((ROOT / "lidarseg3d_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / s for s in SCRIPTS]
 
 
 def _imports(path):
@@ -32,7 +33,8 @@ def _imports(path):
 def test_port_imports_no_jax():
     files = _files()
     assert len(files) > 20
-    listed = {str(p.relative_to(ROOT / "lidarseg3d_torch")) for p in files[:-1]}
+    listed = {str(p.relative_to(ROOT / "lidarseg3d_torch"))
+              for p in files[:-len(SCRIPTS)]}
     assert set(TRAINING_MODULES) <= listed, set(TRAINING_MODULES) - listed
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imports(p) if m.split(".")[0] in FORBIDDEN]
