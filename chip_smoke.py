@@ -30,7 +30,8 @@ Phases (each fails loudly with a non-zero exit):
      a finite gradient and moved, that the BN running statistics moved,
      and that each step launched 36 forward + 35 dX rulebook convs (the
      input conv's features need no gradient), 36 dW kernels, 11 rank
-     lookups and 8 packs (one per sample and stage); time the steps and
+     lookups and 4 packs (one per stage table, both samples in one
+     launch); time the steps and
      the forward / backward / optimizer split. Then one train step of a
      small seeded model on the card (kernels) against the CPU (plain
      versions: loss terms within 1e-4; gradients of the lidar branch and
@@ -45,14 +46,26 @@ Phases (each fails loudly with a non-zero exit):
      12->32 and 32->32 at B=2, strided 32->64, stage-4 subm 256->128,
      inverse 128->128, and the semnusc stage-1 subm), the
      rank-table pack and lookup exactly (semkitti stage 1, semnusc stage
-     3), the merge lookup exactly (semnusc stages 1 and 2), and the pack,
-     lookup and merge on the 92,865,984-cell 0.1 m SemanticKITTI
-     structure (41x1504x1506); times are CUDA-event means of back-to-back
-     calls after warm-up, and device-only means (the profiler's summed
-     kernel durations);
+     3, and the pack of the train path's stage-1 table at B=2 in one
+     call, read in place from the [B, NCE + 1] bitmap), the merge lookup
+     exactly (semnusc stages 1 and 2, and stage 1's stream shuffled, which
+     the kernel must answer in any order; each merge row prints the keys
+     a search spans and the kernel's tiles by path: served wholly,
+     partly or not at all from their shared-memory window), a CUDA graph
+     of the pack replayed on changing bitmaps, and the pack, lookup
+     and merge on the 92,865,984-cell 0.1 m SemanticKITTI structure
+     (41x1504x1506); times are CUDA-event means of back-to-back calls
+     after warm-up, device-only means (the profiler's summed kernel
+     durations) and, for the pack and the merge, the wrapper's host time
+     per call (back-to-back calls, no synchronisation); the pack row also
+     times torch.cumsum of the bitmap and the merge row
+     torch.searchsorted, partial yardsticks that give the rank field only;
   5. profile one scan of each inference path and one train step (device
-     busy share and the kernels that take the time); print the card line,
-     one JSON line of the kernels, then the result line.
+     busy share and the kernels that take the time), and the
+     structures+rulebooks part of one scan of each inference path (its
+     device kernels and launches, and the host operations that take its
+     time); print the card line, one JSON line of the kernels, then the
+     result line.
 """
 
 import json
@@ -92,9 +105,10 @@ TRAIN = dict(cfg=dict(ratio=2), B=2, V=131072, N=122880, img_hw=(384, 1280),
              # per step: 36 forward convs + 35 dX (every conv but the
              # input conv, whose features need no gradient); one dW per
              # conv; 10 rulebook builds + the head's own-cell lookup; one
-             # pack per sample for each of the four stages' rank tables
+             # pack for each of the four stages' rank tables (both
+             # samples in one launch)
              per_step={"rulebook_conv": 71, "rulebook_conv_dw": 36,
-                       "rank_lookup": 11, "rank_pack": 8,
+                       "rank_lookup": 11, "rank_pack": 4,
                        "merge_lookup": 0})
 # small train step, card against CPU: loss terms relative; each gradient
 # tensor against the CPU's as (relative L2 norm, max |err| / max |CPU|),
@@ -407,17 +421,38 @@ def check_lookup(report, name, packed, cells):
     report.append(row)
 
 
+def host_ms(fn, reps=50):
+    """Mean host milliseconds per fn() call over back-to-back calls with no
+    synchronisation: what the wrapper costs the host, launch included."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e3
+
+
 def check_merge(report, name, table, cells, packed=None):
     """merge_lookup against merge_cells_plain, exactly (and, given the
-    RankTable of the same voxels, against its gather on the same cells).
-    For reference it also times torch.searchsorted(keys, cells,
+    RankTable of the same voxels, against its gather on the same cells),
+    with the keys each search spans (the block ranks' bracket of q+1's
+    block) and the kernel's tiles by path (served wholly, partly or not at
+    all from their shared-memory window; queries searched in device
+    memory). For reference it also times torch.searchsorted(keys, cells,
     right=True): a partial yardstick that gives the rank field only."""
     import torch
-    from lidarseg3d_torch.ops.merge_lookup import (merge_cells,
+    from lidarseg3d_torch.ops.merge_lookup import (PATHS, merge_cells,
                                                    merge_cells_plain)
     from lidarseg3d_torch.ops.rank_lookup import gather_cells_plain
 
     keys, num = table.keys, table.num
+    counts = torch.zeros(len(PATHS), dtype=torch.int64, device=DEV)
+    merge_cells(keys, table.coarse, table.shift, num, cells, paths=counts)
+    paths = dict(zip(PATHS, counts.tolist()))
 
     def kern():
         return merge_cells(keys, table.coarse, table.shift, num, cells)
@@ -425,13 +460,17 @@ def check_merge(report, name, table, cells, packed=None):
     got = kern()
     want = merge_cells_plain(keys, num, cells)
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
+    if not torch.equal(got, want) or not torch.equal(kern(), want):
         raise SystemExit(f"merge_lookup {name} differs from its plain "
                          f"version at {int((got != want).sum())} queries")
     if packed is not None and not torch.equal(
             got, gather_cells_plain(packed, cells)):
         raise SystemExit(f"merge_lookup {name} differs from the rank-table "
                          "gather of the same voxels")
+    j = ((cells.long() + 1) >> table.shift).clamp(
+        0, table.coarse.shape[1] - 2).reshape(keys.shape[0], -1)
+    span = (table.coarse.gather(1, j + 1) - table.coarse.gather(1, j)).float()
+    search = dict(mean_keys=float(span.mean()), max_keys=int(span.max()))
     q = cells.numel()
     flatq = cells.reshape(keys.shape[0], -1)  # B == 1: one row of queries
     row = dict(
@@ -441,42 +480,108 @@ def check_merge(report, name, table, cells, packed=None):
         launches=None, max_abs_err=0.0,
         bound_ms=(8.0 * q + 4.0 * keys.numel() + 4.0 * num.numel())
         / PEAK_BYTES * 1e3,
-        bound_by="bytes",
+        bound_by="bytes", search=search, paths=paths,
         **timings(kern, lambda: merge_cells_plain(keys, num, cells)))
+    row["host_ms"] = host_ms(kern)
     partial = lambda: torch.searchsorted(keys, flatq, right=True)  # noqa
     row["partial_searchsorted_ms"] = cuda_time(partial)
     row["partial_searchsorted_device_ms"] = device_ms(partial)
     log(f"  merge {name}: keys={int(num.sum())}/{keys.shape[1]} queries={q} "
         f"exact{' (= rank gather)' if packed is not None else ''} "
-        f"{fmt_times(row)} partial searchsorted (rank only) "
-        f"ms={row['partial_searchsorted_ms']:.4f} (device "
-        f"{row['partial_searchsorted_device_ms']:.4f})")
+        f"{fmt_times(row)} host_ms={row['host_ms']:.4f} partial "
+        f"searchsorted (rank only) ms={row['partial_searchsorted_ms']:.4f} "
+        f"(device {row['partial_searchsorted_device_ms']:.4f}); keys a "
+        f"search spans: mean {search['mean_keys']:.1f}, max "
+        f"{search['max_keys']}; tiles by path {paths}")
     report.append(row)
 
 
-def check_pack(report, name, act):
+def check_pack(report, name, act, nce):
+    """rank_pack against its plain version, exactly, on the first ``nce``
+    cells of each row of act [B, NCE + 1] (read in place, as
+    coords.build_rank_table does). For reference it also times
+    torch.cumsum of the bitmap: a partial yardstick that gives the rank
+    field only."""
     import torch
     from lidarseg3d_torch.ops.rank_pack import (pack_rank_table,
                                                 pack_rank_table_plain)
 
-    got = pack_rank_table(act)
-    want = pack_rank_table_plain(act)
+    got = pack_rank_table(act, nce)
+    want = pack_rank_table_plain(act, nce)
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
+    if not torch.equal(got, want) or not torch.equal(
+            pack_rank_table(act, nce), want):
         raise SystemExit(f"rank_pack {name} differs from its plain version "
                          f"at {int((got != want).sum())} cells")
-    nce = act.numel()
+    B = act.shape[0]
     row = dict(
         name=f"rank_pack[{name}]", route="cuda",
         source="lidarseg3d_torch/csrc/rank_pack.cu",
         replaces="lidarseg3d_tpu/ops/pallas_rank.py:48",
         launches=None, max_abs_err=0.0,
-        bound_ms=5.0 * nce / PEAK_BYTES * 1e3, bound_by="bytes",
-        **timings(lambda: pack_rank_table(act),
-                lambda: pack_rank_table_plain(act)))
-    log(f"  pack {name}: nce={nce} active={int(act.sum())} exact "
-        f"{fmt_times(row)}")
+        bound_ms=5.0 * B * nce / PEAK_BYTES * 1e3, bound_by="bytes",
+        **timings(lambda: pack_rank_table(act, nce),
+                  lambda: pack_rank_table_plain(act, nce)))
+    row["host_ms"] = host_ms(lambda: pack_rank_table(act, nce))
+    a = act[:, :nce]
+    partial = lambda: torch.cumsum(a, 1, dtype=torch.int32)  # noqa: E731
+    row["partial_cumsum_ms"] = cuda_time(partial)
+    row["partial_cumsum_device_ms"] = device_ms(partial)
+    log(f"  pack {name}: B={B} nce={nce} active={int(a.sum())} exact "
+        f"{fmt_times(row)} host_ms={row['host_ms']:.4f} partial cumsum "
+        f"(rank only) ms={row['partial_cumsum_ms']:.4f} (device "
+        f"{row['partial_cumsum_device_ms']:.4f})")
     report.append(row)
+
+
+def check_pack_graph(act, nce):
+    """The pack captured in a CUDA graph and replayed while the bitmap
+    changes, with eager packs on the capture stream between replays: the
+    kernel keeps its call state (tickets, epoch) on the device, so every
+    result is exact. Then two packs across the wrap of the 30-bit epoch."""
+    import torch
+    from lidarseg3d_torch.ops.rank_pack import (pack_rank_table,
+                                                pack_rank_table_plain)
+
+    a = act.clone()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        pack_rank_table(a, nce)  # the stream's workspace, before capture
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        out = pack_rank_table(a, nce)
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    for r in range(4):
+        a.copy_((torch.rand(a.shape, generator=gen, device=DEV)
+                 < 0.05 * (r + 1)).to(torch.int8))
+        g.replay()
+        want = pack_rank_table_plain(a, nce)
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            eager = pack_rank_table(a, nce)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want) or not torch.equal(eager, want):
+            raise SystemExit(f"rank_pack replay {r} of a CUDA graph differs "
+                             "from its plain version")
+    # the epoch's wrap, which clears the status words: set the stream's
+    # epoch to its last value, then two packs
+    from lidarseg3d_torch.ops import rank_pack as rp
+
+    ws = rp._workspaces[(a.device.index, s.cuda_stream)]
+    ws[0] = rp.EPOCH_MASK << 32
+    with torch.cuda.stream(s):
+        wrapped = [pack_rank_table(act, nce) for _ in range(2)]
+    torch.cuda.synchronize()
+    exact = [torch.equal(w, pack_rank_table_plain(act, nce))
+             for w in wrapped]
+    if int(ws[0]) != 1 << 32 or int(ws[1]) != 0 or not all(exact):
+        raise SystemExit(f"rank_pack across the epoch's wrap: workspace "
+                         f"words {ws[:2].tolist()}, exact {exact}")
+    log(f"  pack in a CUDA graph: 4 replays and 4 eager packs between them "
+        f"on its stream, B={a.shape[0]} nce={nce}, exact; two packs across "
+        "the epoch's wrap exact")
 
 
 def subm_stream(books, i):
@@ -549,12 +654,18 @@ def kernel_checks(runs):
                    rnd(c2, 64), tb["inv2"], 64, 32, gen, dx=True)
         check_conv(report, f"dX of subm 256->128 B={B} V={c4}", rnd(c4, 128),
                    tb["subm4"], 128, 256, gen, dx=True)
-        del tb, tst
+        # the train step's stage-1 table: both samples in one pack
+        ts1 = tb["s1"]
+        tact = co.activity(ts1.coords, ts1.num_voxels, ts1.spatial_shape)
+        check_pack(report, f"train stage-1 B={B} {tact.shape[1] - 1} cells",
+                   tact, tact.shape[1] - 1)
+        del tb, tst, tact
 
         # lookup + pack on the stage-1 table of this scan
         act1 = co.activity(s1.coords, s1.num_voxels, s1.spatial_shape)
-        check_pack(report, "stage-1 1387008 cells",
-                   act1[0, :act1.shape[1] - 1])
+        check_pack(report, "stage-1 1387008 cells", act1,
+                   act1.shape[1] - 1)
+        check_pack_graph(act1, act1.shape[1] - 1)
         check_lookup(report, "stage-1 1387008 cells", books["t1"].packed,
                      subm_stream(books, 1))
 
@@ -581,13 +692,22 @@ def kernel_checks(runs):
         s3 = nbooks["s3"]
         act3 = co.activity(s3.coords, s3.num_voxels, s3.spatial_shape)
         nce3 = act3.shape[1] - 1
-        check_pack(report, f"semnusc stage-3 {nce3} cells", act3[0, :nce3])
+        check_pack(report, f"semnusc stage-3 {nce3} cells", act3, nce3)
         check_lookup(report, f"semnusc stage-3 {nce3} cells",
                      nbooks["t3"].packed, subm_stream(nbooks, 3))
         for i in (1, 2):
             Z, Y, X = nbooks[f"s{i}"].spatial_shape
             check_merge(report, f"semnusc stage-{i} subm {Z * Y * (X + 2)} "
                         "cells", nbooks[f"t{i}"], subm_stream(nbooks, i))
+        # stage 1's stream in another order: the kernel's contract is any
+        # order, and a tile of shuffled queries spans the whole key set
+        st1 = subm_stream(nbooks, 1)
+        perm = torch.randperm(st1.shape[-1], generator=gen).to(DEV)
+        Z, Y, X = ns1.spatial_shape
+        check_merge(report, f"semnusc stage-1 subm shuffled "
+                    f"{Z * Y * (X + 2)} cells", nbooks["t1"],
+                    st1[..., perm].contiguous())
+        del st1
         del nbooks, nst, nf2, nf4, act3
 
         # the 0.1 m SemanticKITTI grid: 41 x 1504 x (1504 + 2) cells, with
@@ -599,9 +719,9 @@ def kernel_checks(runs):
                           -1).to(torch.int32)[None].to(DEV)
         nv = torch.tensor([V], dtype=torch.int32, device=DEV)
         actb = co.activity(big, nv, (Z, Y, X))
-        check_pack(report, f"{nce} cells", actb[0, :nce])
+        check_pack(report, f"{nce} cells", actb, nce)
         sb = sp.build_structure(big, nv, (Z, Y, X))
-        tb = co.RankTable(packed=pack_rank_table_plain(actb[0, :nce])[None],
+        tb = co.RankTable(packed=pack_rank_table_plain(actb, nce),
                           spatial_shape=(Z, Y, X))
         del actb
         cells, inb = sp.rank3_query_cells(tb, *sp.subm_queries(sb))
@@ -1010,11 +1130,12 @@ def small_train_check():
         raise SystemExit("twelve steps on one batch did not lower the loss")
 
 
-def profile_call(fn, what, top=12):
+def profile_call(fn, what, top=12, host_top=0):
     """fn() under torch.profiler: the share of its span in which a kernel
-    ran on the card, and the kernels that took the most device time.
-    Returns the busy share (None when the profiler recorded no device
-    activity) and {kernel name: (device us, launches)}."""
+    ran on the card, and the kernels that took the most device time (with
+    ``host_top``, also the host operations that took the most host time,
+    by self time). Returns the busy share (None when the profiler recorded
+    no device activity) and {kernel name: (device us, launches)}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1050,7 +1171,33 @@ def profile_call(fn, what, top=12):
                                    key=lambda kv: -kv[1][0])[:top]:
         log(f"    {tot / 1e3:8.3f} ms {100 * tot / busy:5.1f}% x{cnt:<5d} "
             f"{name[:90]}")
+    if host_top:
+        ops = [a for a in prof.key_averages()
+               if a.device_type == DeviceType.CPU]
+        log(f"  host operations by self time ({len(ops)} kinds):")
+        for a in sorted(ops, key=lambda a: -a.self_cpu_time_total)[:host_top]:
+            log(f"    {a.self_cpu_time_total / 1e3:8.3f} ms x{a.count:<5d} "
+                f"{a.key[:90]}")
     return share, per_name
+
+
+def profile_structures(r):
+    """Phase 5: the structures+rulebooks part of one scan of an inference
+    path (the split's third span: stage structures, lookup tables and the
+    10 rulebooks) under the profiler, after a warm call."""
+    import torch
+
+    model = r["model"]
+    with torch.inference_mode():
+        st = model.lidar_input(r["ex0"])
+        model.backbone_mod.structures(st.structure)
+        torch.cuda.synchronize()
+        share, per_name = profile_call(
+            lambda: model.backbone_mod.structures(st.structure),
+            "structures+rulebooks build", top=15, host_top=15)
+    return dict(device_busy_share=share,
+                device_ms=sum(us for us, _ in per_name.values()) / 1e3,
+                kernels=sum(c for _, c in per_name.values()))
 
 
 def conv_kernel_sums(per_name):
@@ -1121,7 +1268,8 @@ def main():
         by_path = {n: r["launches"][k] for n, r in runs.items()}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
-    log("phase 5: profile of one scan per inference path, one train step")
+    log("phase 5: profile of one scan per inference path, one train step, "
+        "and each inference path's structures+rulebooks build")
     for name, r in runs.items():
         log(f"  {name}:")
         if name == "train":
@@ -1135,6 +1283,9 @@ def main():
         log("  its conv and dW kernels (device time, launches):")
         r["result"]["device_busy_share"] = share
         r["result"]["conv_kernels"] = conv_kernel_sums(per_name)
+        if name != "train":
+            log(f"  {name}, structures+rulebooks of one scan:")
+            r["result"]["structures"] = profile_structures(r)
     log(json.dumps({"main_path": {n: r["result"] for n, r in runs.items()},
                     "seconds": time.perf_counter() - t_start}))
     log(card)

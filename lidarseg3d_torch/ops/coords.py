@@ -70,10 +70,11 @@ def activity(coords, num_voxels, spatial_shape):
 
 def build_rank_table(coords, num_voxels, spatial_shape):
     """Build the packed rank/activity table (see RankTable); the pack runs
-    the rank_pack kernel on CUDA tensors for every table size."""
+    the rank_pack kernel on CUDA tensors for every table size, one launch
+    for all samples, reading the activity bitmap in place (its scratch
+    cell NCE is left out)."""
     act = activity(coords, num_voxels, spatial_shape)
-    nce = act.shape[1] - 1
-    packed = torch.stack([pack_rank_table(a[:nce]) for a in act])
+    packed = pack_rank_table(act, act.shape[1] - 1)
     return RankTable(packed=packed,
                      spatial_shape=tuple(int(s) for s in spatial_shape))
 

@@ -3,8 +3,12 @@ KeyTable's sorted keys, with no dense table.
 
 Counterpart of lidarseg3d_tpu/ops/pallas_merge.py::merge_gather as
 dispatched by lidarseg3d_tpu/ops/sparse.py::_merge_cells. The kernel is
-``csrc/merge_lookup.cu`` (its searches narrowed by the KeyTable's block
-ranks ``coarse``); ``merge_cells_plain`` is the JAX package's
+``csrc/merge_lookup.cu``: a block of THREADS threads answers a tile of
+THREADS * KPER queries of one (group, sample) row from a window of at
+most WINDOW keys that it stages in shared memory (the key positions
+between the block ranks ``coarse`` of the tile's smallest and largest
+query); a query whose bracket ends beyond the window is searched in device
+memory in the same loop. ``merge_cells_plain`` is the JAX package's
 ``merge_gather_xla`` oracle written with ``torch.searchsorted``.
 
 For a query cell q of sample b, both return
@@ -25,7 +29,13 @@ _SIG = {"merge_lookup": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                          ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                          ctypes.c_longlong, ctypes.c_longlong,
-                         ctypes.c_void_p]}
+                         ctypes.c_void_p, ctypes.c_void_p]}
+THREADS = 256  # threads a block (csrc/merge_lookup.cu kThreads)
+KPER = 2  # queries a thread, THREADS apart (kPer)
+WINDOW = 1024  # keys a block stages in shared memory (kWindow)
+# the kernel's optional counters: tiles served wholly from their window,
+# partly, not at all; queries searched in device memory
+PATHS = ("window", "mixed", "global", "global_queries")
 
 
 def merge_cells_plain(keys, num, cells):
@@ -45,12 +55,13 @@ def merge_cells_plain(keys, num, cells):
     return out.to(torch.int32).reshape(B, G, V).permute(1, 0, 2).contiguous()
 
 
-def merge_cells(keys, coarse, shift, num, cells):
+def merge_cells(keys, coarse, shift, num, cells, paths=None):
     """Same contract as ``merge_cells_plain``, given also the KeyTable's
     block ranks ``coarse`` [B, NB + 1] (coarse[b, j] = #{valid keys <
-    j << shift}, every valid key below NB << shift), which narrow the
-    kernel's searches. CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    j << shift}, every valid key below NB << shift), which bracket the
+    kernel's windows and searches. CPU tensors take the plain version;
+    CUDA tensors launch the kernel. ``paths``, an int64 CUDA tensor [4],
+    if given, has the kernel's counters (PATHS) added to it."""
     if keys.device.type == "cpu":
         return merge_cells_plain(keys, num, cells)
     if (keys.device.type != "cuda" or cells.device != keys.device
@@ -64,13 +75,17 @@ def merge_cells(keys, coarse, shift, num, cells):
             or tuple(num.shape) != (B,) or cells.shape[1] != B
             or coarse.shape[0] != B or coarse.shape[1] < 2
             or not keys.is_contiguous() or not cells.is_contiguous()
-            or not coarse.is_contiguous()):
+            or not coarse.is_contiguous()
+            or (paths is not None and (paths.dtype != torch.int64
+                                       or tuple(paths.shape) != (4,)
+                                       or paths.device != keys.device))):
         raise ValueError(
             "merge_cells: need contiguous int32 keys [B, Vk], coarse "
             "[B, NB + 1], num [B] and cells [G, B, V]; got "
             f"{keys.dtype} {tuple(keys.shape)}, {coarse.dtype} "
             f"{tuple(coarse.shape)}, {num.dtype} {tuple(num.shape)}, "
-            f"{cells.dtype} {tuple(cells.shape)}")
+            f"{cells.dtype} {tuple(cells.shape)}, and paths int64 [4] or "
+            "None")
     G, B, V = cells.shape
     out = torch.empty_like(cells)
     if cells.numel() == 0:
@@ -79,6 +94,7 @@ def merge_cells(keys, coarse, shift, num, cells):
     err = lib.merge_lookup(keys.data_ptr(), keys.shape[1], coarse.data_ptr(),
                            coarse.shape[1] - 1, int(shift), num.data_ptr(),
                            cells.data_ptr(), out.data_ptr(), G, B, V,
+                           None if paths is None else paths.data_ptr(),
                            cuda_build.stream_of(cells))
     cuda_build.check(err, "merge_lookup")
     merge_cells.launches += 1

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Device time of the rulebook conv and dW kernels on the port's main
-paths, for comparing two trees of the port in one call on one card.
+"""Device time of the port's kernels on its main paths, for comparing two
+trees of the port in one call on one card.
 
     python3 profile_convs.py [ROOT]
 
@@ -9,12 +9,14 @@ imported and whose kernels are built; the measuring code is this file's and
 chip_smoke.py's, so an older tree is measured the same way as this one.
 It builds the kernels, takes the semkitti training step of chip_smoke.py
 phase 3c (fp32, B=2; one warm step, one counted step whose launches must be
-71 conv / 36 dW / 11 lookup / 8 pack) and profiles one more step, then
-profiles one semkitti scan (after a warm one), and prints each profile's
-busy time and the summed device time and launches of every conv / dW
-kernel name; the last line is one JSON object with those sums and each
-profile's summed device time. Compare
-two trees in turns (A, B, B, A): one call, one card."""
+71 conv / 36 dW / 11 lookup and 4 packs, one per table; 8 in a tree
+whose pack is still per sample, which has no ``rank_pack.TILE``) and
+profiles one more step, then profiles one semkitti scan and one semnusc
+scan (each after a warm one), and prints each profile's busy time, the summed device time and
+launches of every conv / dW kernel name, and the sums of the rank-table
+pack, lookup and merge kernels; the last line is one JSON object with
+those sums and each profile's summed device time. Compare two trees in
+turns (A, B, B, A): one call, one card."""
 
 import json
 import os
@@ -22,6 +24,29 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# kernel names of the table kernels in a profile, this tree's and older
+# trees' (the pack was three kernels before it was one)
+TABLE_KERNELS = {"pack": ("rank_pack_kernel", "block_counts", "scan_blocks",
+                          "pack_write"),
+                 "lookup": ("gather_cells",),
+                 "merge": ("merge_lookup_kernel",)}
+
+
+def table_kernel_sums(log, per_name):
+    """{pack, lookup, merge: [device ms, kernels]} of one profile."""
+    import re
+
+    out = {}
+    for group, names in TABLE_KERNELS.items():
+        pat = re.compile(r"\(anonymous namespace\)::(%s)\b"
+                         % "|".join(names))
+        hits = [(us, cnt) for name, (us, cnt) in per_name.items()
+                if pat.search(name)]
+        out[group] = [sum(us for us, _ in hits) / 1e3,
+                      sum(c for _, c in hits)]
+    log("    table kernels: " + ", ".join(
+        f"{g} {ms:.4f} ms x{c}" for g, (ms, c) in out.items()))
+    return out
 
 
 def main():
@@ -69,35 +94,45 @@ def main():
     state, _ = step(state, exs[1])
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in ws.items()}
-    if launches != t["per_step"]:
-        raise SystemExit(f"train step launches {launches}, expected "
-                         f"{t['per_step']}")
+    from lidarseg3d_torch.ops import rank_pack
+    want = dict(t["per_step"])
+    if not hasattr(rank_pack, "TILE"):  # a pack call per sample and table
+        want["rank_pack"] = t["B"] * t["per_step"]["rank_pack"]
+    if launches != want:
+        raise SystemExit(f"train step launches {launches}, expected {want}")
+    log(f"train step launches: {launches}")
     log("train step:")
     share, per_name = cs.profile_call(lambda: step(state, exs[2]),
                                       "train step")
     out["train"] = cs.conv_kernel_sums(per_name)
+    out["train"]["tables"] = table_kernel_sums(log, per_name)
     out["train"]["device_ms"] = sum(us for us, _ in per_name.values()) / 1e3
     del model, exs, state, step
     torch.cuda.empty_cache()
 
-    # one semkitti inference scan
-    p = cs.main_paths()["semkitti"]
-    model = build_detector(syn.mseg3d_model_cfg(**p["cfg"]), device=cs.DEV,
-                           seed=0)
-    ex = syn.example_to_device(
-        syn.synthetic_mseg3d_batch(1, p["V"], p["N"], img_hw=p["img_hw"],
-                                   seed=0), cs.DEV, syn.grid_shape())
+    # one scan of each inference path
+    for name, p in cs.main_paths().items():
+        model = build_detector(syn.mseg3d_model_cfg(**p["cfg"]),
+                               device=cs.DEV, seed=0)
+        ex = syn.example_to_device(
+            syn.synthetic_mseg3d_batch(1, p["V"], p["N"], img_hw=p["img_hw"],
+                                       ncam=p["ncam"], seed=0, pcr=p["pcr"],
+                                       vsz=p["vsz"]),
+            cs.DEV, syn.grid_shape(p["pcr"], p["vsz"]))
 
-    def scan():
-        ret, bat = model(ex)
-        model.predict(ret, bat)
+        def scan():
+            ret, bat = model(ex)
+            model.predict(ret, bat)
 
-    scan()
-    torch.cuda.synchronize()
-    log("semkitti scan:")
-    share, per_name = cs.profile_call(scan, "scan")
-    out["semkitti"] = cs.conv_kernel_sums(per_name)
-    out["semkitti"]["device_ms"] = sum(us for us, _ in per_name.values()) / 1e3
+        scan()
+        torch.cuda.synchronize()
+        log(f"{name} scan:")
+        share, per_name = cs.profile_call(scan, "scan")
+        out[name] = cs.conv_kernel_sums(per_name)
+        out[name]["tables"] = table_kernel_sums(log, per_name)
+        out[name]["device_ms"] = sum(us for us, _ in per_name.values()) / 1e3
+        del model, ex
+        torch.cuda.empty_cache()
     log(json.dumps(out))
     return 0
 

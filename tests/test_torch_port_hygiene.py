@@ -1,7 +1,8 @@
 """Hygiene of the port: lidarseg3d_torch (its solver, apis and losses
-included), chip_smoke.py and profile_convs.py import nothing of JAX, Flax, optax, the JAX
-package or __graft_entry__, and the entry point runs on cuda unless told
-otherwise."""
+included), chip_smoke.py, profile_convs.py and profile_merge.py import
+nothing of JAX, Flax, optax, the JAX package or __graft_entry__; the entry
+point runs on cuda unless told otherwise; the constants the CPU emulations
+read from the kernel wrappers are the kernel sources' own."""
 
 import ast
 from pathlib import Path
@@ -14,7 +15,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "lidarseg3d_tpu",
              "__graft_entry__")
 TRAINING_MODULES = ("solver/optim.py", "apis/train.py", "ops/losses.py",
                     "ops/rulebook_conv.py")
-SCRIPTS = ("chip_smoke.py", "profile_convs.py")
+SCRIPTS = ("chip_smoke.py", "profile_convs.py", "profile_merge.py")
 
 
 def _files():
@@ -60,7 +61,8 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
     from lidarseg3d_torch.ops.rank_pack import pack_rank_table
 
     with pytest.raises(ValueError):
-        pack_rank_table(torch.zeros(8, dtype=torch.int8, device="meta"))
+        pack_rank_table(torch.zeros(1, 8, dtype=torch.int8, device="meta"),
+                        8)
 
 
 @pytest.mark.parametrize("name", ["rulebook_conv", "rulebook_conv_dw"])
@@ -83,3 +85,32 @@ def test_every_kernel_source_is_registered():
     on_disk = {p.name for p in cuda_build.CSRC.glob("*.cu")}
     assert on_disk == set(cuda_build.SOURCES.values())
     assert len(on_disk) == 5
+
+
+def _cu_ints(name):
+    """The integer constants of a kernel source: constexpr ints and the
+    defaults of its -D overridable macros."""
+    import re
+
+    from lidarseg3d_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC / name).read_text()
+    vals = {m[0]: int(m[1]) for m in re.findall(
+        r"^#define (\w+) (\d+)$", src, re.M)}
+    vals.update({m[0]: vals[m[1]] if m[1] in vals else int(m[1])
+                 for m in re.findall(r"constexpr int (\w+) = (\w+);", src)})
+    return vals
+
+
+def test_wrapper_constants_match_kernel_sources():
+    """The constants the CPU emulations of the pack and merge kernels read
+    from the wrappers are the kernels' own."""
+    from lidarseg3d_torch.ops import merge_lookup as ml
+    from lidarseg3d_torch.ops import rank_pack as rp
+
+    pk = _cu_ints("rank_pack.cu")
+    assert (rp.THREADS, rp.TILE, rp.HEADER) == (
+        pk["kThreads"], pk["kThreads"] * pk["kGroups"] * 4, pk["kHeader"])
+    mg = _cu_ints("merge_lookup.cu")
+    assert (ml.THREADS, ml.KPER, ml.WINDOW) == (
+        mg["kThreads"], mg["kPer"], mg["kWindow"])

@@ -29,10 +29,11 @@ def test_pack_matches_pallas_kernel(nce, density):
     act = (rng.random(nce) < density).astype(np.int8)
     act[0] = act[-1] = 1  # table-edge neighbour bits
     want = pallas_rank.pack_rank_table(jnp.asarray(act), interpret=True)
-    got = pack_rank_table(t(act))
+    got = pack_rank_table(t(act)[None], nce)[0]
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(n(got), n(want))
-    np.testing.assert_array_equal(n(pack_rank_table_plain(t(act))), n(want))
+    np.testing.assert_array_equal(
+        n(pack_rank_table_plain(t(act)[None], nce)[0]), n(want))
 
 
 def _coords(rng, shape, nvox, V):
