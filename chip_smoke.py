@@ -36,8 +36,27 @@ Phases (each fails loudly with a non-zero exit):
      small seeded model on the card (kernels) against the CPU (plain
      versions: loss terms within 1e-4; gradients of the lidar branch and
      the head within 1e-3 in relative L2 norm and 5e-3 of their max, of
-     the image branch within 1e-2 and 2e-2), and twelve steps on one
-     fixed small batch that must lower the loss;
+     the image branch within 1e-2 and 2e-2), each side's distance from the
+     same step in float64 on the CPU printed beside those limits, and
+     twelve steps on one fixed small batch that must lower the loss;
+  3d. eval: the published SemanticKITTI MSeg3D config
+     (configs/semantickitti/MSeg3D/semkitti_avgvfe_unetscn3d_hrnetw18_lr1en2_e12.py:
+     0.1 m grid 41x1504x1504, stages 1-2 on KeyTables, capacity 160000
+     voxels / 131072 points, frozen_stages=3) at full width and depth,
+     seeded weights with BN statistics calibrated on frame 0 (so labels
+     spread), saved by save_checkpoint, evaluated by the entry point
+     lidarseg3d_torch.tools.test (main, in-process, --speed_test) on a
+     seeded tree of sequence 08 (20 frames of 120,000-125,000 points,
+     1241x376 PNGs) through the val pipeline, the loader, run_eval and
+     evaluation; check every frame's prediction against its label file's
+     point count and the label range, that the predicted classes spread
+     (printed), the mIoU (finite, above 0), the launches per scan of
+     the conv, lookup, merge and pack, and that run_eval_device_hist's
+     histogram equals the host histogram of the predictions; time the
+     scans after the first and the host pipeline per frame; then frame 0
+     at its published size through the same entry point on the CPU, and
+     the mini config card against CPU (labels 99.9%, mIoU within 0.1
+     point, each);
   4. hold each kernel against its plain version on the card at each main
      path's shapes, from a real scan of that path: the rulebook conv in
      fp32 and bf16 (stage-1 subm, stage-1->2 strided, stage-4 subm; and as
@@ -54,13 +73,17 @@ Phases (each fails loudly with a non-zero exit):
      partly or not at all from their shared-memory window), a CUDA graph
      of the pack replayed on changing bitmaps, and the pack, lookup
      and merge on the 92,865,984-cell 0.1 m SemanticKITTI structure
-     (41x1504x1506); times are CUDA-event means of back-to-back calls
+     (41x1504x1506); and, from a scan of the eval path (phase 3d), the
+     conv at its stage-1 subm and stride-2 shapes, the merge on its
+     stage-1 and stage-2 KeyTables, the pack and lookup on its stage-3
+     RankTable; times are CUDA-event means of back-to-back calls
      after warm-up, device-only means (the profiler's summed kernel
      durations) and, for the pack and the merge, the wrapper's host time
      per call (back-to-back calls, no synchronisation); the pack row also
      times torch.cumsum of the bitmap and the merge row
      torch.searchsorted, partial yardsticks that give the rank field only;
-  5. profile one scan of each inference path and one train step (device
+  5. profile one scan of each inference path (the eval path included)
+     and one train step (device
      busy share and the kernels that take the time), and the
      structures+rulebooks part of one scan of each inference path (its
      device kernels and launches, and the host operations that take its
@@ -123,6 +146,20 @@ TRAIN = dict(cfg=dict(ratio=2), B=2, V=131072, N=122880, img_hw=(384, 1280),
 TOL_TRAIN_LOSS = 1e-4
 TOL_TRAIN_GRAD = {"lidar+head": (1e-3, 5e-3), "image": (1e-2, 2e-2)}
 TOL_BF16_BRANCH = 0.1  # max |err| / max |fp32|, tests/_bf16_test_body.py
+# phase 3d: the published SemanticKITTI MSeg3D config (0.1 m grid
+# 41x1504x1504, capacity 160000 voxels / 131072 points, frozen_stages=3)
+# evaluated through the entry point on a seeded tree of sequence 08, and
+# the mini config card against CPU through the same entry point
+EVAL = dict(config="configs/semantickitti/MSeg3D/"
+            "semkitti_avgvfe_unetscn3d_hrnetw18_lr1en2_e12.py",
+            frames=20, points=(120000, 125000), seed=0, image_hw=(376, 1241),
+            max_range=75.0, mini="configs/tests/mini_semkitti_mseg3d.py",
+            ncls=20)
+# card vs CPU through the entry point (phase 3's limits)
+MIN_LABEL_AGREE, MAX_MIOU_POINTS = 0.999, 0.1
+# phase 3d's labels must spread: classes predicted besides the ignore class
+# 0, the share of points outside class 0, the largest share of one class
+MIN_PRED_CLASSES, MIN_SHARE_NOT_0, MAX_SHARE_ONE_CLASS = 4, 0.05, 0.9
 IMG_KEYS = ("image_features", "image_logits", "camera_semantic_embeddings")
 
 
@@ -710,6 +747,32 @@ def kernel_checks(runs):
         del st1
         del nbooks, nst, nf2, nf4, act3
 
+        # the eval path (phase 3d): the published 0.1 m config's tables
+        # and rulebooks from a real scan of the tree, stages 1-2 KeyTables
+        emodel, eex = runs["eval"]["model"], runs["eval"]["ex0"]
+        est = emodel.lidar_input(eex)
+        eb = emodel.backbone_mod.structures(est.structure)
+        ecap = eb["s1"].capacity
+        log("  eval stage voxels: " + " ".join(
+            f"s{i}={int(eb[f's{i}'].num_voxels[0])}/{eb[f's{i}'].capacity}"
+            for i in range(1, 5)))
+        check_conv(report, f"eval subm V={ecap}", est.features, eb["subm1"],
+                   12, 32, gen)
+        ef2 = torch.rand(1, ecap, 32, generator=gen).to(DEV)
+        check_conv(report, f"eval strided {ecap}->{eb['s2'].capacity}", ef2,
+                   eb["down2"], 32, 64, gen)
+        for i in (1, 2):
+            Z, Y, X = eb[f"s{i}"].spatial_shape
+            check_merge(report, f"eval stage-{i} subm {Z * Y * (X + 2)} "
+                        "cells", eb[f"t{i}"], subm_stream(eb, i))
+        es3 = eb["s3"]
+        eact3 = co.activity(es3.coords, es3.num_voxels, es3.spatial_shape)
+        ence3 = eact3.shape[1] - 1
+        check_pack(report, f"eval stage-3 {ence3} cells", eact3, ence3)
+        check_lookup(report, f"eval stage-3 {ence3} cells", eb["t3"].packed,
+                     subm_stream(eb, 3))
+        del eb, est, ef2, eact3
+
         # the 0.1 m SemanticKITTI grid: 41 x 1504 x (1504 + 2) cells, with
         # the scan's voxels spread over it key-sorted
         Z, Y, X = BIG_GRID
@@ -1054,18 +1117,57 @@ def run_train(t=TRAIN):
     log("  split ms: " + ", ".join(f"{n} {v:.2f}"
                                    for n, v in zip(names, split)))
     result["split_ms"] = dict(zip(names, split))
+    result["remat"] = remat_steps(t, exs[:2], ishape, peak)
     ex0 = dict(exs[1])
     ex0["input_shape"] = ishape
     return dict(result=result, launches=launches, model=model, ex0=ex0,
                 state=state, step=step)
 
 
+def remat_steps(t, exs, ishape, peak_off):
+    """The same training step with every remat option on (HRNet's
+    with_cp, ACT_REMAT of the UNet's residual stacks and of the SFFM
+    layers): one warm step, then one counted step; its peak memory beside
+    the counted steps' without remat, and its launches (the recomputed
+    blocks run their convs again in the backward)."""
+    import torch
+    from lidarseg3d_torch import synthetic as syn
+    from lidarseg3d_torch.models import build_detector
+
+    cfg = syn.mseg3d_model_cfg(**t["cfg"])
+    cfg["img_backbone"]["with_cp"] = True
+    cfg["backbone"]["model_cfg"]["ACT_REMAT"] = True
+    cfg["point_head"]["model_cfg"]["ACT_REMAT"] = True
+    model = build_detector(cfg, device=DEV, seed=0)
+    _, state, step = train_setup(model, t["optimizer"], t["lr"],
+                                 t["total_steps"], t["grad_clip"], ishape)
+    check_losses(step(state, exs[0])[1], "remat warm step")
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    check_losses(step(state, exs[1])[1], "remat step")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: w.launches for k, w in ws.items()}
+    log(f"  with remat on (with_cp, ACT_REMAT): one step {ms:.2f} ms, peak "
+        f"memory {peak:.2f} GiB (without: {peak_off:.2f}); launches "
+        f"{launches}")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return dict(step_ms=ms, peak_memory_gib=peak, launches=launches)
+
+
 def small_train_check():
     """One train step of the same small seeded model (ratio 1, small HRNet,
     no dropout) on one labelled batch, on the card (kernels) and on the
-    CPU (plain versions): loss terms and gradients must agree. Then the
-    card goes on for eleven more steps on that batch, which must lower the
-    loss."""
+    CPU (plain versions): loss terms and gradients must agree. Both are
+    also measured against the same step in float64 on the CPU (plain
+    versions), the reference of fp32's own noise. Then the card goes on
+    for eleven more steps on that batch, which must lower the loss."""
     import torch
     from lidarseg3d_torch import synthetic as syn
     from lidarseg3d_torch.apis import train as tr
@@ -1076,17 +1178,39 @@ def small_train_check():
     b = syn.synthetic_mseg3d_batch(2, 4096, 4096, img_hw=(64, 128), seed=7,
                                    with_labels=True)
     out = {}
-    for dev in (DEV, "cpu"):
-        m = build_detector(cfg, device=dev, seed=3)
+    for key, dev, dt in ((DEV, DEV, torch.float32),
+                         ("cpu", "cpu", torch.float32),
+                         ("cpu64", "cpu", torch.float64)):
+        m = build_detector(cfg, device=dev, seed=3).to(dt)
         _, state, step = train_setup(
             m, dict(type="adam", wd=0.01), dict(lr_max=2e-3), 12, 35.0,
             syn.grid_shape())
-        ex = tr.example_to_device(b, dev)
+        ex = {k: v.to(dt) if v.is_floating_point() else v
+              for k, v in tr.example_to_device(b, dev).items()}
         state, ldict = step(state, ex)
-        out[dev] = (check_losses(ldict, f"small step on {dev}"),
-                    {k: p.grad.detach().float().cpu()
+        out[key] = (check_losses(ldict, f"small step on {key}"),
+                    {k: p.grad.detach().double().cpu()
                      for k, p in m.named_parameters()}, state, step, ex)
     card, cpu = out[DEV], out["cpu"]
+    ref = out.pop("cpu64")[1]
+    for name, side in (("card", card[1]), ("CPU fp32", cpu[1])):
+        for group, limits in TOL_TRAIN_GRAD.items():
+            wl2, wmax = ("", 0.0), ("", 0.0)
+            for k, want in ref.items():
+                if ("image" if k.startswith("img_") else "lidar+head") \
+                        != group:
+                    continue
+                scale = float(want.abs().max())
+                if scale <= 1e-7 * cpu[0]["grad_norm"]:
+                    continue  # analytically zero: rounding noise only
+                d = side[k] - want
+                wl2 = max(wl2, (k, float(d.norm() / want.norm())),
+                          key=lambda kv: kv[1])
+                wmax = max(wmax, (k, float(d.abs().max()) / scale),
+                           key=lambda kv: kv[1])
+            log(f"    {name} vs float64, {group}: worst relative L2 "
+                f"{wl2[1]:.2e} ({wl2[0]}), worst max-entry {wmax[1]:.2e} "
+                f"({wmax[0]}); card-vs-CPU limits {limits}")
     for k, want in cpu[0].items():
         if abs(card[0][k] - want) > TOL_TRAIN_LOSS * abs(want):
             raise SystemExit(f"small train step: {k} {card[0][k]} on the "
@@ -1128,6 +1252,381 @@ def small_train_check():
         + " ".join(f"{v:.3f}" for v in losses))
     if not losses[-1] < losses[0]:
         raise SystemExit("twelve steps on one batch did not lower the loss")
+
+
+def calibrate_bn(model, ex):
+    """Set every BN layer's running statistics to the (masked) batch
+    statistics of its input in one evaluation forward of ``ex``, each
+    layer seeing the output of layers already set: the data-fitted
+    statistics a trained model carries. build_detector leaves mean 0 and
+    variance 1, with which a seeded model's activations drift into one
+    shared direction and it gives one label to every point (class 8 at
+    the published config's 0.1 m size), and a comparison of labels would
+    say little."""
+    import torch
+    from lidarseg3d_torch.models.layers import MaskedBatchNorm
+
+    def set_stats(bn, args, kwargs):
+        x = args[0].float()
+        mask = args[1] if len(args) > 1 else kwargs.get("mask")
+        cd = bn.channel_dim % x.dim()
+        dims = [d for d in range(x.dim()) if d != cd]
+        mf = (torch.ones_like(x) if mask is None
+              else mask.to(x.dtype).unsqueeze(cd).expand_as(x))
+        cnt = mf.sum(dims).clamp(min=1.0)
+        mean = (x * mf).sum(dims) / cnt
+        shape = [1] * x.dim()
+        shape[cd] = -1
+        var = ((x - mean.view(shape)) ** 2 * mf).sum(dims) / cnt
+        bn.running_mean.copy_(mean)
+        bn.running_var.copy_(var)
+
+    hooks = [m.register_forward_pre_hook(set_stats, with_kwargs=True)
+             for m in model.modules() if isinstance(m, MaskedBatchNorm)]
+    try:
+        with torch.no_grad():
+            model.eval()(dict(ex))
+    finally:
+        for h in hooks:
+            h.remove()
+    return model
+
+
+def first_example(dataset, cap, ishape, device):
+    """Frame 0 of ``dataset`` through the port's loader, on ``device``."""
+    from lidarseg3d_torch.apis.train import example_to_device
+    from lidarseg3d_torch.datasets import SegDataLoader
+
+    with SegDataLoader(dataset, 1, cap["max_voxels"], cap["max_points"],
+                       shuffle=False, drop_last=False,
+                       num_workers=1) as loader:
+        ex = example_to_device(next(loader.epoch(0)), device)
+    ex["input_shape"] = ishape
+    return ex
+
+
+def predicted_classes(detections, ncls, what):
+    """The predicted-class histogram over every frame, printed; fails
+    unless the labels spread: at least MIN_PRED_CLASSES classes besides
+    the ignore class 0 (which evaluation drops), at least
+    MIN_SHARE_NOT_0 of the points outside class 0, and no class above
+    MAX_SHARE_ONE_CLASS of the points."""
+    import numpy as np
+
+    counts = sum(np.bincount(p["pred_point_sem_labels"], minlength=ncls)
+                 for p in detections.values())
+    total = int(counts.sum())
+    others = int((counts[1:] > 0).sum())
+    log(f"  {what}: predicted classes over {total} points: "
+        + ", ".join(f"{c}: {int(n)}" for c, n in enumerate(counts) if n))
+    if others < MIN_PRED_CLASSES or counts[1:].sum() < MIN_SHARE_NOT_0 \
+            * total or counts.max() > MAX_SHARE_ONE_CLASS * total:
+        raise SystemExit(f"{what}: the labels do not spread ({others} "
+                         "classes besides 0)")
+    return counts
+
+
+def label_agreement(got, want):
+    """Share of points whose labels agree between two detections dicts
+    of the same frames, and the point count."""
+    agree = total = 0
+    for token, w in want.items():
+        g = got[token]["pred_point_sem_labels"]
+        agree += int((g == w["pred_point_sem_labels"]).sum())
+        total += g.size
+    return agree / max(total, 1), total
+
+
+def host_pipeline_ms(dataset, cap):
+    """Host milliseconds per frame of each stage of the val pipeline and of
+    the collate, one frame at a time on one thread."""
+    from lidarseg3d_torch.datasets import collate_segnet
+
+    ms = {}
+    for i in range(len(dataset)):
+        info = dataset.load_infos(i)
+        sample = {"mode": "val", "rng": None,
+                  "metadata": {"token": info["token"],
+                               "num_point_features": 4}}
+        for t in dataset.pipeline.transforms:
+            t0 = time.perf_counter()
+            sample, info = t(sample, info)
+            k = type(t).__name__
+            ms[k] = ms.get(k, 0.0) + (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        collate_segnet([sample], cap["max_voxels"], cap["max_points"])
+        ms["collate"] = ms.get("collate", 0.0) + (time.perf_counter()
+                                                  - t0) * 1e3
+    ms = {k: v / len(dataset) for k, v in ms.items()}
+    ms["total"] = sum(ms.values())
+    return ms
+
+
+def eval_card_vs_cpu(tmp):
+    """Phase 3d's agreement on the mini config (frozen_stages=3): the
+    entry point on the card and on the CPU, from one seeded checkpoint
+    with calibrated BN statistics and a small tree: labels agree on at
+    least 99.9% of the points and the two mIoUs are within 0.1 point."""
+    from lidarseg3d_torch.apis.train import TrainState, save_checkpoint
+    from lidarseg3d_torch.datasets import build_dataset
+    from lidarseg3d_torch.models import build_detector
+    from lidarseg3d_torch.synthetic import (write_eval_config,
+                                            write_semantickitti_tree)
+    from lidarseg3d_torch.tools import test as tool
+    from lidarseg3d_torch.utils.config import Config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    data_root = os.path.join(tmp, "mini", "sequences")
+    work = os.path.join(tmp, "mini", "work")
+    # 20 frames: near-ties of the spread labels flip on about 1 point in
+    # 2,000 between the card and the CPU, and 3 frames (4,000 points) left
+    # the 99.9% limit a margin of a few points
+    write_semantickitti_tree(data_root, ("00",), frames=20,
+                             points=(1200, 1500), seed=5,
+                             image_hw=(64, 128), max_range=6.0)
+    cfg_path = write_eval_config(os.path.join(tmp, "mini", "mini.py"),
+                                 os.path.join(here, EVAL["mini"]), data_root)
+    cfg = Config.fromfile(cfg_path)
+    model = build_detector(cfg.model.to_dict(), device="cpu", seed=3)
+    calibrate_bn(model, first_example(build_dataset(cfg.data.val.to_dict()),
+                                      cfg.capacity, tool.input_shape_of(cfg),
+                                      "cpu"))
+    save_checkpoint(work, TrainState(0, model, None, None), epoch=1)
+    out = {dev: tool.main([cfg_path, "--checkpoint", work, "--work_dir",
+                           work, "--device", dev])
+           for dev in (DEV, "cpu")}
+    for dev in (DEV, "cpu"):
+        predicted_classes(out[dev]["detections"], EVAL["ncls"],
+                          f"mini config on {dev}")
+    share, total = label_agreement(out[DEV]["detections"],
+                                   out["cpu"]["detections"])
+    mious = [out[d]["results"]["results"]["mIoU"] for d in (DEV, "cpu")]
+    log(f"  mini config (frozen_stages=3) card vs CPU through the entry "
+        f"point: {len(out['cpu']['detections'])} frames, {total} points, "
+        f"labels agree {share:.6f}, mIoU {mious[0]:.4f} / {mious[1]:.4f} "
+        f"(limits {MIN_LABEL_AGREE}, {MAX_MIOU_POINTS} point)")
+    if total == 0 or share < MIN_LABEL_AGREE \
+            or not abs(mious[0] - mious[1]) <= MAX_MIOU_POINTS:
+        raise SystemExit("the entry point on the card disagrees with the "
+                         "CPU on the mini config")
+    return dict(label_agreement=share, miou_card=mious[0],
+                miou_cpu=mious[1])
+
+
+def published_frame_on_cpu(e, cfg_path, cfg, work, card):
+    """Frame 0 of phase 3d's tree, at its published size, through the
+    entry point on the CPU (the kernels' plain versions) from the same
+    checkpoint: its labels agree with the card's on at least 99.9% of the
+    points and its mIoU is within 0.1 point of the card's on that frame."""
+    import shutil
+    import tempfile
+
+    from lidarseg3d_torch.datasets import build_dataset
+    from lidarseg3d_torch.synthetic import write_semantickitti_tree
+    from lidarseg3d_torch.tools import test as tool
+
+    tmp = tempfile.mkdtemp(prefix="semkitti_frame0_")
+    try:
+        # the same seed draws the same first frame
+        write_semantickitti_tree(os.path.join(tmp, cfg.data_root), ("08",),
+                                 frames=1, points=e["points"],
+                                 seed=e["seed"], image_hw=e["image_hw"],
+                                 max_range=e["max_range"])
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            cpu = tool.main([cfg_path, "--checkpoint", work, "--work_dir",
+                             os.path.join(tmp, "work"), "--device", "cpu"])
+            secs = time.perf_counter() - t0
+            ds = build_dataset(cfg.data.val.to_dict())
+            mine = {t: card[t] for t in cpu["detections"]}
+            miou_card = ds.evaluation(mine)[0]["results"]["mIoU"]
+        finally:
+            os.chdir(cwd)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    predicted_classes(cpu["detections"], e["ncls"],
+                      "published config, frame 0 on the CPU")
+    share, total = label_agreement(mine, cpu["detections"])
+    miou_cpu = cpu["results"]["results"]["mIoU"]
+    log(f"  published config, frame 0 card vs CPU through the entry point "
+        f"({secs:.1f} s on the CPU): {total} points, labels agree "
+        f"{share:.6f}, mIoU {miou_card:.4f} / {miou_cpu:.4f} (limits "
+        f"{MIN_LABEL_AGREE}, {MAX_MIOU_POINTS} point)")
+    if total == 0 or share < MIN_LABEL_AGREE \
+            or not abs(miou_card - miou_cpu) <= MAX_MIOU_POINTS:
+        raise SystemExit("the entry point on the card disagrees with the "
+                         "CPU on the published config's frame 0")
+    return dict(label_agreement=share, miou_card=miou_card,
+                miou_cpu=miou_cpu, cpu_seconds=secs)
+
+
+def run_eval_path(e=EVAL):
+    """Phase 3d: the published SemanticKITTI config evaluated through the
+    entry point (lidarseg3d_torch.tools.test main, in-process, --speed_test)
+    on a seeded tree, with its checks; then the device histogram, the host
+    pipeline's time, frame 0 on the CPU through the same entry point, and
+    the card against the CPU on the mini config. Returns the run for
+    phases 4 and 5."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from lidarseg3d_torch.apis import eval as ev
+    from lidarseg3d_torch.apis.train import TrainState, save_checkpoint
+    from lidarseg3d_torch.core.seg_metrics import fast_hist
+    from lidarseg3d_torch.datasets import SegDataLoader, build_dataset
+    from lidarseg3d_torch.models import build_detector
+    from lidarseg3d_torch.ops import coords as co
+    from lidarseg3d_torch.synthetic import write_semantickitti_tree
+    from lidarseg3d_torch.tools import test as tool
+    from lidarseg3d_torch.utils.config import Config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg_path = os.path.join(here, e["config"])
+    cfg = Config.fromfile(cfg_path)
+    cap, ishape = cfg.capacity, tool.input_shape_of(cfg)
+    tmp = tempfile.mkdtemp(prefix="semkitti_eval_")
+    try:
+        # the config's data_root is relative: the tree goes under tmp and
+        # the entry point runs with tmp as its working directory
+        data_root = os.path.join(tmp, cfg.data_root)
+        t0 = time.perf_counter()
+        write_semantickitti_tree(data_root, ("08",), frames=e["frames"],
+                                 points=e["points"], seed=e["seed"],
+                                 image_hw=e["image_hw"],
+                                 max_range=e["max_range"])
+        H, W = e["image_hw"]
+        log(f"  tree: sequence 08, {e['frames']} frames of "
+            f"{e['points'][0]}-{e['points'][1]} points and {W}x{H} images "
+            f"written in {time.perf_counter() - t0:.2f} s; grid {ishape}, "
+            f"capacity {dict(cap)}")
+        ds_cfg = cfg.data.val.to_dict()
+        ds_cfg["root_path"] = data_root
+        ds = build_dataset(ds_cfg)
+        model = build_detector(cfg.model.to_dict(), device=DEV, seed=0)
+        hb = model.img_backbone_mod
+        if hb.frozen_stages != 3 or not hb.frozen_parameters():
+            raise SystemExit("the published config's frozen_stages=3 is "
+                             "not honoured")
+        calibrate_bn(model, first_example(ds, cap, ishape, DEV))
+        work = os.path.join(tmp, "work")
+        save_checkpoint(work, TrainState(0, model, None, None), epoch=1)
+        del model, hb
+        torch.cuda.empty_cache()
+
+        ws = wrappers()
+        for w in ws.values():
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            out = tool.main([cfg_path, "--checkpoint", work, "--work_dir",
+                             work, "--speed_test", "--device", DEV])
+        finally:
+            os.chdir(cwd)
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in ws.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        nscan = len(out["detections"])
+        per_scan = {k: n / max(nscan, 1) for k, n in launches.items()}
+        log(f"  launches over {nscan} scans: {launches}; per scan "
+            f"{per_scan}")
+        need = ("rulebook_conv", "rank_lookup", "merge_lookup", "rank_pack")
+        if nscan != e["frames"] or any(launches[k] <= 0 for k in need) \
+                or launches["rulebook_conv_dw"] != 0:
+            raise SystemExit(f"phase 3d: {nscan} scans, launches "
+                             f"{launches}")
+
+        # predictions cover every point of each label file, in range, and
+        # spread over the classes
+        for token, pred in out["detections"].items():
+            labels = pred["pred_point_sem_labels"]
+            n = len(ds.get_anno_for_eval(token)["point_sem_labels"])
+            if labels.shape != (n,) or labels.min() < 0 \
+                    or labels.max() >= e["ncls"]:
+                raise SystemExit(f"{token}: {labels.shape} labels in "
+                                 f"[{labels.min()}, {labels.max()}] for {n} "
+                                 "points")
+        classes = predicted_classes(out["detections"], e["ncls"],
+                                    "published config on the card")
+        miou = out["results"]["results"]["mIoU"]
+        if not (np.isfinite(miou) and 0.0 < miou <= 100.0):
+            raise SystemExit(f"phase 3d: mIoU {miou}")
+        lat = np.asarray(out["latencies"]) * 1e3
+        mid = lat[len(lat) // 3: 2 * len(lat) // 3]
+        warm = lat[1:]
+        log(f"  per-scan ms (speed_test, CUDA events between two "
+            f"synchronizations): {[round(float(v), 2) for v in lat]}; "
+            f"after the first scan ({len(warm)}): mean {warm.mean():.2f}, "
+            f"p50 {np.percentile(warm, 50):.2f}, min {warm.min():.2f}, max "
+            f"{warm.max():.2f}; middle third ({len(mid)}) mean "
+            f"{mid.mean():.2f}, p50 {np.percentile(mid, 50):.2f}; peak "
+            f"memory {peak:.2f} GiB; mIoU {miou:.4f}")
+
+        # the stage tables of one scan: kinds, cells, bytes
+        state = out["state"]
+        model = state.model
+        ex0 = first_example(ds, cap, ishape, DEV)
+        with torch.inference_mode():
+            books = model.backbone_mod.structures(
+                model.lidar_input(ex0).structure)
+        tables = []
+        for i in range(1, 5):
+            t = books[f"t{i}"]
+            if isinstance(t, co.KeyTable):
+                tables.append(f"s{i} keys")
+            else:
+                mib = t.packed.shape[-1] * 4 / 2**20
+                tables.append(f"s{i} rank {t.packed.shape[-1]} cells "
+                              f"{mib:.2f} MiB")
+                if mib > 12:
+                    raise SystemExit(f"stage {i}: a RankTable above 12 MiB")
+        del books
+        log(f"  stage tables of scan 0: {', '.join(tables)}; no RankTable "
+            "above 12 MiB, so no lookup took the JAX package's "
+            "_lookup_gather_hbm route (0 launches)")
+
+        # the device histogram against the host one of the predictions
+        with SegDataLoader(ds, 1, cap["max_voxels"], cap["max_points"],
+                           shuffle=False, drop_last=False,
+                           num_workers=2) as loader:
+            _, _, hist = ev.run_eval_device_hist(model, state, loader,
+                                                 ishape, ds, e["ncls"])
+        want = sum(fast_hist(p["pred_point_sem_labels"],
+                             ds.get_anno_for_eval(t)["point_sem_labels"],
+                             e["ncls"])
+                   for t, p in out["detections"].items())
+        if not np.array_equal(hist, want):
+            raise SystemExit("run_eval_device_hist's histogram differs from "
+                             "the host histogram of the predictions at "
+                             f"{int((hist != want).sum())} entries")
+        log(f"  run_eval_device_hist: [{e['ncls']}, {e['ncls']}] histogram "
+            f"of {int(hist.sum())} points equals the host histogram")
+
+        pipe = host_pipeline_ms(ds, cap)
+        log("  host pipeline ms per frame (one thread): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in pipe.items()))
+        frame0 = published_frame_on_cpu(e, cfg_path, cfg, work,
+                                        out["detections"])
+        agreement = eval_card_vs_cpu(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result = dict(p50_ms=float(np.percentile(warm, 50)),
+                  mean_ms=float(warm.mean()), scans_timed=len(warm),
+                  speed_test_middle_third_ms=dict(
+                      mean=float(mid.mean()),
+                      p50=float(np.percentile(mid, 50))),
+                  peak_memory_gib=peak, miou=miou,
+                  predicted_classes=[int(c) for c in classes],
+                  launches_per_scan=per_scan, host_pipeline_ms=pipe,
+                  tables=tables, frame0_card_vs_cpu=frame0,
+                  card_vs_cpu=agreement)
+    return dict(result=result, launches=launches, model=model, ex0=ex0,
+                path=dict(V=cap["max_voxels"], N=cap["max_points"]))
 
 
 def profile_call(fn, what, top=12, host_top=0):
@@ -1261,6 +1760,8 @@ def main():
     log("phase 3c: main path train")
     runs["train"] = run_train()
     small_train_check()
+    log("phase 3d: main path eval (published semkitti config)")
+    runs["eval"] = run_eval_path()
     log("phase 4: kernels against their plain versions")
     report = kernel_checks(runs)
     for row in report:

@@ -1,0 +1,113 @@
+"""Evaluation loop: batched inference -> per-frame predictions -> dataset
+mIoU (own copy of run_eval without TTA, run_eval_device_hist and
+evaluate_dataset of lidarseg3d_tpu/apis/eval.py).
+
+Each batch goes to the model's device, and only its int32 label rows come
+back to the host. ``run_eval_device_hist`` keeps even the confusion
+histogram on the device and moves a [C, C] array per batch. Test-time
+augmentation (merging the softmax of a frame's variants) is not ported
+yet and raises.
+"""
+
+import time
+
+import numpy as np
+import torch
+
+from ..core.seg_metrics import confusion_hist, per_class_iou
+from ..datasets.batching import pad_axis0
+from .train import example_to_device, make_eval_step
+
+
+def _device_of(state):
+    return next(state.model.parameters()).device
+
+
+def run_eval(model, state, loader, input_shape, dataset, logger=None,
+             test_cfg=None, speed_test=False, latencies=None):
+    """-> {token: {"pred_point_sem_labels": int32 [n]}} over the loader's
+    epoch 0, n the frame's point count.
+
+    ``speed_test`` times each batch alone, from its dispatch to its labels
+    being ready, between two ``torch.cuda.synchronize()`` calls with CUDA
+    events (the host clock on the CPU), and logs the mean and p50 over the
+    middle third of the batches, per frame. ``latencies``, a list, receives
+    every batch's seconds per frame."""
+    if test_cfg and test_cfg.get("tta_flag", False):
+        raise NotImplementedError("run_eval: TTA is not ported to "
+                                  "lidarseg3d_torch yet")
+    dev = _device_of(state)
+    on_card = dev.type == "cuda"
+    eval_step = make_eval_step(model, input_shape)
+    lat = [] if latencies is None else latencies
+    detections = {}
+    for it, batch in enumerate(loader.epoch(0)):
+        dev_batch = example_to_device(batch, dev)
+        if speed_test:
+            if on_card:
+                torch.cuda.synchronize(dev)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            t0 = time.perf_counter()
+        labels = eval_step(state, dev_batch)["pred_point_sem_labels"].to(
+            torch.int32)
+        if speed_test:
+            if on_card:
+                end.record()
+                torch.cuda.synchronize(dev)
+                secs = start.elapsed_time(end) / 1e3
+            else:
+                secs = time.perf_counter() - t0
+            lat.append(secs / len(batch["metadata"]))
+        labels = labels.cpu().numpy()
+        npts = batch["num_points_total"]
+        for b, md in enumerate(batch["metadata"]):
+            token = md["token"] if md else f"frame_{it}_{b}"
+            detections[token] = {
+                "pred_point_sem_labels": labels[b, :int(npts[b])]}
+    if speed_test and logger is not None:
+        mid = np.asarray(lat[len(lat) // 3: 2 * len(lat) // 3])
+        if len(mid):
+            logger.info(f"speed_test: mean {mid.mean() * 1000:.1f} "
+                        f"ms/frame, p50 {np.percentile(mid, 50) * 1000:.1f} "
+                        "ms (unpipelined)")
+    return detections
+
+
+def run_eval_device_hist(model, state, loader, input_shape, dataset,
+                         num_classes, logger=None):
+    """Validation mIoU with the confusion histogram of every batch summed
+    on the device, against each frame's label file as
+    ``dataset.get_anno_for_eval`` reads it. Returns (miou, per-class IoU
+    over classes 1..C-1, the [C, C] histogram); the ignore class 0 is
+    dropped from both axes, as ``fast_hist_crop`` does."""
+    dev = _device_of(state)
+    eval_step = make_eval_step(model, input_shape)
+    hist = torch.zeros(num_classes, num_classes, dtype=torch.int64,
+                       device=dev)
+    for batch in loader.epoch(0):
+        dev_batch = example_to_device(batch, dev)
+        pred = eval_step(state, dev_batch)["pred_point_sem_labels"]
+        n = batch["points"].shape[1]
+        labels = np.stack([pad_axis0(dataset.get_anno_for_eval(md["token"])[
+            "point_sem_labels"].astype(np.int64), n)
+            for md in batch["metadata"]])
+        hist += confusion_hist(pred, torch.from_numpy(labels).to(dev),
+                               num_classes, valid=dev_batch["point_valid"])
+    hist = hist.cpu().numpy()
+    ious = per_class_iou(hist[1:, 1:])
+    miou = float(np.nanmean(ious))
+    if logger is not None:
+        logger.info(f"device-hist val mIoU: {miou * 100:.2f}")
+    return miou, ious, hist
+
+
+def evaluate_dataset(dataset, detections, output_dir=None, testset=False,
+                     logger=None):
+    res, _ = dataset.evaluation(detections, output_dir=output_dir,
+                                testset=testset)
+    if res is not None and logger is not None:
+        for k, v in res["results"].items():
+            logger.info(f"{k}: {v:.2f}")
+    return res

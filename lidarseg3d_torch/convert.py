@@ -21,6 +21,11 @@ buffer of the model is assigned, or it raises and names what is left.
 A gradient tree has the parameters' structure, so the same function carries
 it across (``flax_params_to_named``): tests compare gradients and updated
 parameters tensor by tensor under ``state_dict`` names.
+
+``save_flax_checkpoint`` writes a JAX train state's ``params`` and
+``batch_stats`` (as numpy trees) as a checkpoint of the port
+(``apis.train.save_checkpoint``), which ``python -m
+lidarseg3d_torch.tools.test`` then evaluates.
 """
 
 from collections.abc import Mapping
@@ -133,3 +138,16 @@ def load_flax_variables(model, variables):
     """Load converted Flax variables into ``model`` (strict)."""
     model.load_state_dict(flax_to_state_dict(model, variables), strict=True)
     return model
+
+
+def save_flax_checkpoint(model, params, batch_stats, work_dir, epoch):
+    """Load a JAX train state's ``params`` and ``batch_stats`` (nested
+    dicts of numpy arrays) into ``model`` (strict) and save them as a
+    weights-only checkpoint ``work_dir/epoch_{epoch}`` of the port.
+    Returns the checkpoint's path."""
+    from .apis.train import TrainState, save_checkpoint
+
+    load_flax_variables(model, {"params": params,
+                                "batch_stats": batch_stats})
+    return save_checkpoint(work_dir, TrainState(
+        step=0, model=model, opt_state=None, generator=None), epoch)

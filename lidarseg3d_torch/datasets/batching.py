@@ -1,6 +1,6 @@
 """Padded fixed-capacity batches from per-frame host data (own copy of
-``collate_segnet`` in lidarseg3d_tpu/datasets/batching.py, segmentation
-keys only)."""
+``pad_axis0``, ``collate_segnet`` and ``pad_batch_rows`` of
+lidarseg3d_tpu/datasets/batching.py, segmentation keys only)."""
 
 import logging
 
@@ -26,6 +26,16 @@ def _check_overflow(frames, max_voxels, max_points, on_overflow):
     if on_overflow == "error":
         raise ValueError(msg)
     logger.warning(msg)
+
+
+def pad_axis0(arr, size, fill=0):
+    """Pad/truncate arr along axis 0 to ``size``."""
+    n = min(arr.shape[0], size)
+    shape = (size,) + arr.shape[1:]
+    out = (np.zeros(shape, dtype=arr.dtype) if fill == 0
+           else np.full(shape, fill, dtype=arr.dtype))
+    out[:n] = arr[:n]
+    return out
 
 
 def _pad_stack(arrs, size, dtype, fill=0):
@@ -63,7 +73,8 @@ def collate_segnet(frames, max_voxels, max_points, ignore_label=0,
     batch["num_points_total"] = np.asarray(
         [min(fr["points"].shape[0], max_points) for fr in frames], np.int32)
     if "images" in frames[0]:
-        batch["images"] = np.stack([fr["images"] for fr in frames])
+        batch["images"] = (frames[0]["images"][None] if len(frames) == 1
+                           else np.stack([fr["images"] for fr in frames]))
         batch["points_cuv"] = _pad_stack(
             [np.asarray(fr["points_cuv"], np.float32) for fr in frames],
             max_points, np.float32)
@@ -81,3 +92,23 @@ def collate_segnet(frames, max_voxels, max_points, ignore_label=0,
         np.arange(max_voxels)[None, :] < batch["num_voxels"][:, None])
     batch["metadata"] = [fr.get("metadata") for fr in frames]
     return batch
+
+
+def pad_batch_rows(batch, multiple):
+    """Pad the batch dim to a multiple of ``multiple`` with empty rows
+    (num_voxels = 0, all masks False). metadata is not padded: consumers
+    iterate over metadata to skip the empty rows."""
+    B = batch["voxels"].shape[0]
+    pad = (-B) % multiple
+    if pad == 0:
+        return batch
+    ncam = batch["images"].shape[1] if "images" in batch else 1
+    out = {}
+    for k, v in batch.items():
+        if k == "metadata":
+            out[k] = v
+        else:
+            p = pad * ncam if k == "images_sem_labels" else pad
+            out[k] = np.concatenate(
+                [v, np.zeros((p,) + v.shape[1:], dtype=v.dtype)], axis=0)
+    return out

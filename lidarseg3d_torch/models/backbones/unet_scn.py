@@ -33,15 +33,17 @@ class UNetSCN3D(nn.Module):
         r = cfg.get("SCALING_RATIO", 1)
         c1, c2, c3 = 16 * r, 32 * r, 64 * r
         cbr = SparseConvBNReLU
+        # ACT_REMAT recomputes the encoder's residual blocks in the backward
+        rm = bool(cfg.get("ACT_REMAT", False))
         # names follow the JAX package's Flax scopes (see models/layers.py)
         self.SparseConvBNReLU_0 = cbr(num_input_features, c1)  # conv_input
-        self.SparseBasicBlockStack_0 = SparseBasicBlockStack(c1)
+        self.SparseBasicBlockStack_0 = SparseBasicBlockStack(c1, remat=rm)
         self.SparseConvBNReLU_1 = cbr(c1, c2, conv_type="spconv")
-        self.SparseBasicBlockStack_1 = SparseBasicBlockStack(c2)
+        self.SparseBasicBlockStack_1 = SparseBasicBlockStack(c2, remat=rm)
         self.SparseConvBNReLU_2 = cbr(c2, c3, conv_type="spconv")
-        self.SparseBasicBlockStack_2 = SparseBasicBlockStack(c3)
+        self.SparseBasicBlockStack_2 = SparseBasicBlockStack(c3, remat=rm)
         self.SparseConvBNReLU_3 = cbr(c3, c3, conv_type="spconv")
-        self.SparseBasicBlockStack_3 = SparseBasicBlockStack(c3)
+        self.SparseBasicBlockStack_3 = SparseBasicBlockStack(c3, remat=rm)
         # decoder: per UR block a lateral residual block, a subm conv of the
         # concat, and the inverse conv (the last stage's is a subm conv)
         self.SparseBasicBlock_0 = SparseBasicBlock(c3)

@@ -10,6 +10,15 @@ branch layout is TPU layout work with identical parameters, so the port
 computes the same convs in the plain layout. Submodule names follow the
 JAX package's Flax scopes (models/layers.py); HRModuleStack's nn.scan
 becomes a ModuleList ``scan.{i}``.
+
+Training options, as the JAX package reads them (its hrnet.py:362-403):
+``frozen_stages=s`` runs the BN of the stem, stage 1 and stages 2..s on
+their running statistics in training mode and detaches each frozen
+stage's output, so no gradient reaches a frozen parameter (its gradient
+is zero, and weight decay still shrinks it: the JAX package freezes with
+``stop_gradient``, not by leaving the optimizer); ``norm_eval`` runs every
+BN of the branch on running statistics in training; ``with_cp``
+recomputes each HR module in the backward (utils/remat.py).
 """
 
 import torch
@@ -17,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.resize import resize_bilinear
+from ...utils.remat import remat
 from ..layers import MaskedBatchNorm, Scopes, add
 from ..registry import IMG_BACKBONES
 
@@ -137,17 +147,22 @@ class HRModule(nn.Module):
 
 
 class HRModuleStack(nn.Module):
-    """num_modules HRModules (an nn.scan in the JAX package)."""
+    """num_modules HRModules (an nn.scan in the JAX package); with
+    ``remat`` each module is recomputed in the backward, as the JAX
+    package's nn.remat of the scan body."""
 
-    def __init__(self, num_modules, num_branches, num_blocks, num_channels):
+    def __init__(self, num_modules, num_branches, num_blocks, num_channels,
+                 remat=False):
         super().__init__()
+        self.remat = remat
         self.scan = nn.ModuleList(
             HRModule(num_branches, num_blocks, num_channels)
             for _ in range(num_modules))
 
     def forward(self, xs):
         for m in self.scan:
-            xs = m(xs)
+            xs = (remat(lambda *a, m=m: m(list(a)), *xs) if self.remat
+                  else m(xs))
         return xs
 
 
@@ -159,6 +174,7 @@ class HRNet(nn.Module):
         super().__init__()
         self.compute_dtype = (None if compute_dtype is None
                               else getattr(torch, compute_dtype))
+        self.norm_eval, self.frozen_stages = norm_eval, frozen_stages
         s = Scopes()
         stem = [add(self, s, ConvBNReLU(in_channels, 64, stride=2)),
                 add(self, s, ConvBNReLU(64, 64, stride=2))]
@@ -184,9 +200,36 @@ class HRNet(nn.Module):
                     trans.append(add(self, s, ConvBNReLU(
                         prev[-1], chans[i], stride=2)))
             stack = add(self, s, HRModuleStack(
-                cfg["num_modules"], nb, tuple(cfg["num_blocks"]), chans))
+                cfg["num_modules"], nb, tuple(cfg["num_blocks"]), chans,
+                remat=with_cp))
             self.stages.append((trans, stack))
             prev = list(chans)
+
+    def frozen_parts(self):
+        """The submodules of the frozen stages: the stem and stage 1 when
+        ``frozen_stages >= 1``, stage si's transitions and HR modules when
+        ``frozen_stages >= si``."""
+        parts = self.stem + self.layer1 if self.frozen_stages >= 1 else []
+        for si, (trans, stack) in enumerate(self.stages, start=2):
+            if self.frozen_stages >= si:
+                parts += [t for t in trans if t is not None] + [stack]
+        return parts
+
+    def frozen_parameters(self):
+        """Names of the parameters no gradient reaches (frozen stages)."""
+        ids = {id(p) for m in self.frozen_parts() for p in m.parameters()}
+        return [n for n, p in self.named_parameters() if id(p) in ids]
+
+    def train(self, mode=True):
+        """Training mode, with the BN of the frozen stages (of the whole
+        branch under ``norm_eval``) left on running statistics."""
+        super().train(mode)
+        if mode:
+            for part in [self] if self.norm_eval else self.frozen_parts():
+                for m in part.modules():
+                    if isinstance(m, MaskedBatchNorm):
+                        m.eval()
+        return self
 
     def forward(self, x):
         """x: [N, 3, H, W] -> list of 4 NCHW maps (1/4 .. 1/32), in
@@ -197,11 +240,15 @@ class HRNet(nn.Module):
             x = m(x)
         for m in self.layer1:
             x = m(x)
+        if self.frozen_stages >= 1:
+            x = x.detach()
         xs = [x]
-        for trans, stack in self.stages:
+        for si, (trans, stack) in enumerate(self.stages, start=2):
             new_xs = []
             for i, t in enumerate(trans):
                 src = xs[i] if i < len(xs) else xs[-1]
                 new_xs.append(src if t is None else t(src))
             xs = stack(new_xs)
+            if self.frozen_stages >= si:
+                xs = [v.detach() for v in xs]
         return xs

@@ -80,8 +80,9 @@ class FCNMSeg3DHead(nn.Module):
         if self.concat:
             feats = self.concat[0](torch.cat([x, feats], dim=1))
         logits = conv_as_input(self.Conv_0, feats)
-        feats = feats.permute(0, 2, 3, 1).float().contiguous()
-        logits = logits.permute(0, 2, 3, 1).float().contiguous()
+        out_t = torch.promote_types(feats.dtype, torch.float32)
+        feats = feats.permute(0, 2, 3, 1).to(out_t).contiguous()
+        logits = logits.permute(0, 2, 3, 1).to(out_t).contiguous()
         return {
             "image_features": feats,
             "image_logits": logits,

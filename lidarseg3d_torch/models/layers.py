@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import remat
+
 
 class Scopes:
     """Per-class counters that reproduce Flax's auto-naming (Class_N)."""
@@ -52,7 +54,9 @@ class MaskedBatchNorm(nn.Module):
     normalizes, the unbiased one (``var * cnt / max(cnt - 1, 1)``) goes
     into the running variance, with torch momentum semantics
     ``running = (1 - m) * running + m * batch``; the running statistics
-    are updated in place, outside the autograd graph. In evaluation mode
+    are updated in place, outside the autograd graph, and not again when a
+    recomputed region (utils/remat.py) runs the layer a second time for
+    the backward. In evaluation mode
     the running statistics normalize. Statistics are computed in
     ``promote_types(dtype, float32)`` and the input's dtype is returned.
     The JAX package's ``sub_groups`` is its space-to-depth layout and has
@@ -86,16 +90,20 @@ class MaskedBatchNorm(nn.Module):
                 mean = (xs * mf).sum(dims) / cnt
                 var = ((xs - mean.view(shape)) ** 2 * mf).sum(dims) / cnt
                 unbias = cnt / (cnt - 1.0).clamp(min=1.0)
-            with torch.no_grad():
-                m = self.momentum
-                rm, rv = self.running_mean, self.running_var
-                rm.mul_(1 - m).add_((m * mean).to(rm.dtype))
-                rv.mul_(1 - m).add_((m * (var * unbias)).to(rv.dtype))
+            if remat.phase() != "recompute":
+                self._update_running(mean, var, unbias)
         else:
             mean, var = self.running_mean, self.running_var
         y = ((xs - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
              * self.weight.view(shape) + self.bias.view(shape))
         return y.to(x.dtype)
+
+    @torch.no_grad()
+    def _update_running(self, mean, var, unbias):
+        m = self.momentum
+        rm, rv = self.running_mean, self.running_var
+        rm.mul_(1 - m).add_((m * mean).to(rm.dtype))
+        rv.mul_(1 - m).add_((m * (var * unbias)).to(rv.dtype))
 
 
 class MLPHead(nn.Module):

@@ -19,6 +19,7 @@ from torch import nn
 from ...ops import grid_sample as gs
 from ...ops import interpolate as interp
 from ...ops import losses as L
+from ...utils import remat
 from ..layers import MaskedBatchNorm, MLPHead, TorchLinear
 from ..registry import POINT_HEADS
 
@@ -104,9 +105,13 @@ class SFFMDecoderLayer(nn.Module):
 
 
 class SemanticFeatureFusionModule(nn.Module):
+    """With ``remat`` each decoder layer is recomputed in the backward (the
+    JAX package's nn.remat of the scan body, ACT_REMAT)."""
+
     def __init__(self, d_input_point, d_camera_emb, d_lidar_emb, d_model=96,
-                 n_head=4, n_layer=6, n_ffn=192):
+                 n_head=4, n_layer=6, n_ffn=192, remat=False):
         super().__init__()
+        self.remat = remat
         self.TorchLinear_0 = TorchLinear(d_input_point, d_model)
         self.TorchLinear_1 = TorchLinear(d_camera_emb, d_model)
         self.TorchLinear_2 = TorchLinear(d_lidar_emb, d_model)
@@ -120,7 +125,8 @@ class SemanticFeatureFusionModule(nn.Module):
         memory = torch.cat([self.TorchLinear_1(sem_emb_camera),
                             self.TorchLinear_2(sem_emb_lidar)], dim=1)
         for layer in self.SFFMDecoderLayer_0:
-            tgt, memory = layer(tgt, memory)
+            tgt, memory = (remat.remat(layer, tgt, memory) if self.remat
+                           else layer(tgt, memory))
         return self.LayerNorm_0(tgt)
 
 
@@ -155,7 +161,8 @@ class PointSegMSeg3DHead(nn.Module):
         self.MaskedBatchNorm_2 = MaskedBatchNorm(geo)
         self.SemanticFeatureFusionModule_0 = SemanticFeatureFusionModule(
             geo, c_img, c_vox, d_model=sf["d_model"], n_head=sf["n_head"],
-            n_layer=sf["n_layer"], n_ffn=sf["n_ffn"])
+            n_layer=sf["n_layer"], n_ffn=sf["n_ffn"],
+            remat=bool(cfg.get("ACT_REMAT", False)))
         self.TorchLinear_3 = TorchLinear(sf["d_model"], num_class)
 
     def forward(self, batch, generator=None):
@@ -172,6 +179,10 @@ class PointSegMSeg3DHead(nn.Module):
             if generator is None:
                 raise ValueError("training with DP_RATIO > 0 needs an "
                                  "explicit torch.Generator")
+            if remat.phase() is not None:
+                # a recompute would draw another mask from the generator
+                raise RuntimeError("the point head's dropout must stay "
+                                   "outside every recomputed region")
             keep = torch.rand(x.shape, generator=generator, device=x.device,
                               dtype=x.dtype) >= self.dp_ratio
             x = x * keep / (1.0 - self.dp_ratio)

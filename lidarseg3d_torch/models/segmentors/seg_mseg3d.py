@@ -68,6 +68,12 @@ class SegMSeg3DNet(nn.Module):
             bb_out = self.backbone_mod(self.lidar_input(example))
             return self.head(example, bb_out, img_out, generator)
 
+    def frozen_parameters(self):
+        """Names of the parameters that get no gradient by design: those of
+        the image backbone's frozen stages."""
+        return ["img_backbone_mod." + n
+                for n in self.img_backbone_mod.frozen_parameters()]
+
     def loss(self, ret, batch):
         """Point-head losses + image-head losses -> (total, dict of every
         term and "loss")."""

@@ -11,6 +11,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import sparse as sp
+from ..utils.remat import remat
 from .layers import MaskedBatchNorm, Scopes, add
 
 
@@ -107,14 +108,22 @@ class SparseBasicBlock(nn.Module):
 
 class SparseBasicBlockStack(nn.Module):
     """n consecutive SparseBasicBlocks (an nn.scan in the JAX package; the
-    scan's stacked weights unstack into ``blocks.{i}``)."""
+    scan's stacked weights unstack into ``blocks.{i}``). With ``remat``
+    each block is recomputed in the backward (the JAX package's nn.remat of
+    the scan body); the rulebook is built outside the recomputed region."""
 
-    def __init__(self, features, n=2):
+    def __init__(self, features, n=2, remat=False):
         super().__init__()
+        self.remat = remat
         self.blocks = nn.ModuleList(SparseBasicBlock(features)
                                     for _ in range(n))
 
     def forward(self, st: sp.SparseTensor, rulebook):
+        f = st.features
         for blk in self.blocks:
-            st = blk(st, rulebook)
-        return st
+            if self.remat:
+                f = remat(lambda x, blk=blk: blk(
+                    sp.SparseTensor(st.structure, x), rulebook).features, f)
+            else:
+                f = blk(sp.SparseTensor(st.structure, f), rulebook).features
+        return sp.SparseTensor(structure=st.structure, features=f)

@@ -17,6 +17,7 @@ import ctypes
 
 import torch
 
+from ..utils import remat
 from . import cuda_build
 
 _SIG = {"rank_pack": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
@@ -92,6 +93,10 @@ def pack_rank_table(act, nce):
         return pack_rank_table_plain(act, nce)
     if act.device.type != "cuda":
         raise ValueError(f"pack_rank_table: unsupported device {act.device}")
+    if remat.phase() is not None:
+        raise RuntimeError("pack_rank_table: tables are built outside "
+                           "recomputed regions (the stream's workspace "
+                           "must not be re-entered from a recompute)")
     nce = int(nce)
     _check_rows(act, nce)
     if act.dtype != torch.int8 or (act.numel() > 0 and act.stride(-1) != 1):

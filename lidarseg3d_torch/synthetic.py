@@ -10,13 +10,19 @@ gives the input spatial shape (Z, Y, X) = (21, 256, 256); one camera at
 The semnusc bench shape (``SEMNUSC``, the JAX package's bench.py:155-175):
 the 0.1 m nuScenes grid (Z, Y, X) = (41, 1024, 1024), six cameras at
 640x960, V=N=40960, 17 classes, and the image branch in bf16.
+
+``write_semantickitti_tree`` writes a seeded dataset on disk in
+SemanticKITTI's layout, for the evaluation entry point.
 """
+
+import os
 
 import numpy as np
 import torch
 
 from .core.voxelize import VoxelGenerator, encode_compact_value_labels
 from .datasets.batching import collate_segnet
+from .datasets.pipelines.png import write_png_bgr
 
 PCR = (-25.6, -25.6, -4.0, 25.6, 25.6, 2.0)
 VSZ = (0.2, 0.2, 0.3)
@@ -176,3 +182,112 @@ def example_to_device(batch, device, input_shape=None):
     if input_shape is not None:
         ex["input_shape"] = tuple(int(s) for s in input_shape)
     return ex
+
+
+# HDL-64E beam elevations (degrees), the sensor's height over the ground
+# (m), and KITTI's left colour camera P2 and velodyne->camera Tr of the
+# public odometry calibration
+HDL64_ELEVATION = np.linspace(2.0, -24.8, 64)
+SENSOR_HEIGHT = 1.73
+KITTI_P2 = np.array([[718.856, 0.0, 607.1928, 45.38225],
+                     [0.0, 718.856, 185.2157, -0.1130887],
+                     [0.0, 0.0, 1.0, 0.003779761]])
+KITTI_TR = np.array(
+    [[-1.857739e-03, -9.999659e-01, -8.039975e-03, -4.784029e-03],
+     [-6.481465e-03, 8.051860e-03, -9.999466e-01, -7.337429e-02],
+     [9.999773e-01, -1.805528e-03, -6.496203e-03, -3.339968e-01]])
+# raw label ids: what the ground and the structures around it are made of
+GROUND_IDS = (40, 44, 48, 49, 60, 72)
+STRUCTURE_IDS = (0, 1, 10, 11, 13, 15, 18, 20, 30, 31, 50, 51, 52, 70, 71,
+                 80, 81, 99, 252, 253, 254)
+THING_IDS = frozenset((10, 11, 13, 15, 18, 20, 30, 31, 252, 253, 254))
+
+
+def _kitti_scan(rng, n, max_range, sectors=180):
+    """n returns of a 64-beam scanner: each beam hits the ground plane or,
+    before it, the wall of its azimuth sector (at a seeded distance up to
+    ``max_range``). -> points [n, 4] float32, raw labels [n] uint32 (the
+    semantic id in the low 16 bits, an instance id above for things)."""
+    beam = rng.integers(0, 64, n)
+    el = np.deg2rad(HDL64_ELEVATION[beam] + rng.normal(0.0, 0.05, n))
+    az = rng.uniform(-np.pi, np.pi, n)
+    sec = ((az + np.pi) / (2 * np.pi) * sectors).astype(np.int64) % sectors
+    wall = rng.uniform(0.15, 0.98, sectors) * max_range
+    ground_id = rng.choice(GROUND_IDS, sectors)
+    wall_id = rng.choice(STRUCTURE_IDS, sectors)
+    with np.errstate(divide="ignore"):
+        d_ground = np.where(el < 0, SENSOR_HEIGHT / np.tan(-el), np.inf)
+    on_ground = d_ground < wall[sec]
+    d = np.where(on_ground, d_ground, wall[sec]) + rng.normal(0, 0.02, n)
+    z = np.where(on_ground, -SENSOR_HEIGHT, d * np.tan(el))
+    pts = np.stack([d * np.cos(az), d * np.sin(az),
+                    z + rng.normal(0, 0.02, n), rng.uniform(0, 0.99, n)],
+                   1).astype(np.float32)
+    sem = np.where(on_ground, ground_id[sec], wall_id[sec]).astype(np.uint32)
+    inst = np.where(np.isin(sem, list(THING_IDS)), sec + 1, 0)
+    return pts, sem | (inst.astype(np.uint32) << 16)
+
+
+def _kitti_image(rng, H, W):
+    """A smooth seeded BGR image with noise, uint8 [H, W, 3]."""
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    f = rng.uniform(0.005, 0.05, (3, 2)).astype(np.float32)
+    ph = rng.uniform(0, 2 * np.pi, 3).astype(np.float32)
+    img = np.stack([np.sin(xx * f[c, 0] + yy * f[c, 1] + ph[c])
+                    for c in range(3)], -1)
+    img = 127.5 + 110.0 * img + rng.normal(0, 8.0, (H, W, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_semantickitti_tree(root, sequences=("08",), frames=4,
+                             points=(120000, 125000), seed=0,
+                             with_images=True, image_hw=(376, 1241),
+                             max_range=75.0):
+    """Write a seeded tree in SemanticKITTI's layout under ``root`` (the
+    ``sequences`` directory): per sequence a calib.txt with P0-P3 and Tr,
+    and per frame ``velodyne/NNNNNN.bin`` (float32 x, y, z, intensity),
+    ``labels/NNNNNN.label`` (uint32 raw ids from the learning map, with
+    instance bits) and, ``with_images``, ``image_2/NNNNNN.png`` (8-bit RGB,
+    ``image_hw``). ``points`` is a frame's point count, or an inclusive
+    (low, high) range to draw it from. The scans are rings of a 64-beam
+    scanner within ``max_range`` m; about a fifth of the points fall in
+    the camera's view."""
+    rng = np.random.default_rng(seed)
+    lo, hi = (points, points) if np.isscalar(points) else points
+    calib = "".join(f"P{i}: " + " ".join(f"{v:.12e}" for v in
+                                         KITTI_P2.reshape(-1)) + "\n"
+                    for i in range(4))
+    calib += "Tr: " + " ".join(f"{v:.12e}" for v in KITTI_TR.reshape(-1))
+    for seq in sequences:
+        base = os.path.join(root, seq)
+        for sub in ("velodyne", "labels") + (("image_2",) if with_images
+                                            else ()):
+            os.makedirs(os.path.join(base, sub), exist_ok=True)
+        with open(os.path.join(base, "calib.txt"), "w") as f:
+            f.write(calib + "\n")
+        for i in range(frames):
+            n = int(rng.integers(lo, hi + 1))
+            pts, raw = _kitti_scan(rng, n, max_range)
+            pts.tofile(os.path.join(base, "velodyne", f"{i:06d}.bin"))
+            raw.tofile(os.path.join(base, "labels", f"{i:06d}.label"))
+            if with_images:
+                write_png_bgr(os.path.join(base, "image_2", f"{i:06d}.png"),
+                              _kitti_image(rng, *image_hw))
+
+
+def write_eval_config(path, config, data_root, work_dir=None):
+    """Write to ``path`` a copy of the config file ``config`` whose data
+    splits read the tree at ``data_root`` (as ``write_semantickitti_tree``
+    writes it), with the image backbone's ``frozen_stages=3`` (as every
+    published MSeg3D config sets it) and, if given, ``work_dir``. Returns
+    ``path``."""
+    with open(config) as f:
+        text = f.read()
+    text += (f"\nfor _split in ('train', 'val', 'test'):\n"
+             f"    data[_split]['root_path'] = {data_root!r}\n"
+             "model['img_backbone']['frozen_stages'] = 3\n")
+    if work_dir is not None:
+        text += f"work_dir = {work_dir!r}\n"
+    with open(path, "w") as f:
+        f.write(text)
+    return path

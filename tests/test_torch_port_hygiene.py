@@ -1,8 +1,10 @@
-"""Hygiene of the port: lidarseg3d_torch (its solver, apis and losses
-included), chip_smoke.py, profile_convs.py and profile_merge.py import
-nothing of JAX, Flax, optax, the JAX package or __graft_entry__; the entry
-point runs on cuda unless told otherwise; the constants the CPU emulations
-read from the kernel wrappers are the kernel sources' own."""
+"""Hygiene of the port: lidarseg3d_torch (its solver, apis, losses,
+datasets and tools included), chip_smoke.py, profile_convs.py and
+profile_merge.py import nothing of JAX, Flax, optax, the JAX package or
+__graft_entry__, and no image library (cv2, PIL, imageio: the card's
+machine has none); the entry points run on cuda unless told otherwise;
+the constants the CPU emulations read from the kernel wrappers are the
+kernel sources' own."""
 
 import ast
 from pathlib import Path
@@ -12,9 +14,15 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "lidarseg3d_tpu",
-             "__graft_entry__")
+             "__graft_entry__", "cv2", "PIL", "imageio")
 TRAINING_MODULES = ("solver/optim.py", "apis/train.py", "ops/losses.py",
-                    "ops/rulebook_conv.py")
+                    "ops/rulebook_conv.py", "utils/remat.py")
+EVAL_MODULES = ("tools/test.py", "apis/eval.py", "core/seg_metrics.py",
+                "datasets/loader.py", "datasets/batching.py",
+                "datasets/pipelines/loading.py", "datasets/pipelines/png.py",
+                "datasets/pipelines/img_transforms.py",
+                "datasets/pipelines/seg_preprocess.py",
+                "datasets/semantickitti/dataset.py", "parallel/dist.py")
 SCRIPTS = ("chip_smoke.py", "profile_convs.py", "profile_merge.py")
 
 
@@ -36,10 +44,19 @@ def test_port_imports_no_jax():
     assert len(files) > 20
     listed = {str(p.relative_to(ROOT / "lidarseg3d_torch"))
               for p in files[:-len(SCRIPTS)]}
-    assert set(TRAINING_MODULES) <= listed, set(TRAINING_MODULES) - listed
+    wanted = set(TRAINING_MODULES) | set(EVAL_MODULES)
+    assert wanted <= listed, wanted - listed
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imports(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+def test_imports_are_checked_in_function_bodies_too(tmp_path):
+    """The AST walk sees imports inside functions (the entry point imports
+    lazily), so a forbidden one there is caught."""
+    p = tmp_path / "lazy.py"
+    p.write_text("def f():\n    import cv2\n    from PIL import Image\n")
+    assert {"cv2", "PIL"} <= set(_imports(p))
 
 
 def test_build_detector_defaults_to_cuda():
