@@ -29,9 +29,9 @@ Phases (each fails loudly with a non-zero exit):
      loss term and the gradient norm are finite, that every parameter has
      a finite gradient and moved, that the BN running statistics moved,
      and that each step launched 36 forward + 35 dX rulebook convs (the
-     input conv's features need no gradient), 36 dW kernels, 11 rank
-     lookups and 4 packs (one per stage table, both samples in one
-     launch); time the steps and
+     input conv's features need no gradient), 36 dW kernels, 10 fused
+     rulebook builds, one own-cell lookup and 4 packs (one per stage
+     table, both samples in one launch); time the steps and
      the forward / backward / optimizer split. Then one train step of a
      small seeded model on the card (kernels) against the CPU (plain
      versions: loss terms within 1e-4; gradients of the lidar branch and
@@ -51,8 +51,8 @@ Phases (each fails loudly with a non-zero exit):
      evaluation; check every frame's prediction against its label file's
      point count and the label range, that the predicted classes spread
      (printed), the mIoU (finite, above 0), the launches per scan of
-     the conv, lookup, merge and pack, and that run_eval_device_hist's
-     histogram equals the host histogram of the predictions; time the
+     every kernel (semnusc's: the same table kinds), and that
+     run_eval_device_hist's histogram equals the host histogram of the predictions; time the
      scans after the first and the host pipeline per frame; then frame 0
      at its published size through the same entry point on the CPU, and
      the mini config card against CPU (labels 99.9%, mIoU within 0.1
@@ -76,7 +76,20 @@ Phases (each fails loudly with a non-zero exit):
      (41x1504x1506); and, from a scan of the eval path (phase 3d), the
      conv at its stage-1 subm and stride-2 shapes, the merge on its
      stage-1 and stage-2 KeyTables, the pack and lookup on its stage-3
-     RankTable; times are CUDA-event means of back-to-back calls
+     RankTable. The rulebook lookups: all 10 rulebooks of each path's
+     structures (semkitti, train at B=2, semnusc, eval), each exactly
+     against its plain version and the path's own rulebook on both table
+     kinds (the fused kernel on a RankTable; the front end, merge and
+     decode on a KeyTable), timed on the path's own kind with the bytes
+     bound, the wrapper's host time a call and torch.take of the in-grid
+     cells as the partial yardstick of the gather alone (no one call
+     builds a rulebook); the fused kernel on the 92.9M-cell table; an
+     edge-heavy synthetic structure (B=2, ragged, every face of the grid
+     active) with subm, strided and inverse rulebooks at padding 1 and
+     (0, 1, 1) and the inverse with sx = 1 on both kinds; and the
+     single-cell lookup at the semkitti and train heads' points (timed)
+     and with queries outside every face; times are CUDA-event means of
+     back-to-back calls
      after warm-up, device-only means (the profiler's summed kernel
      durations) and, for the pack and the merge, the wrapper's host time
      per call (back-to-back calls, no synchronisation); the pack row also
@@ -86,9 +99,10 @@ Phases (each fails loudly with a non-zero exit):
      and one train step (device
      busy share and the kernels that take the time), and the
      structures+rulebooks part of one scan of each inference path (its
-     device kernels and launches, and the host operations that take its
-     time); print the card line, one JSON line of the kernels, then the
-     result line.
+     device kernels and launches beside the count before the fused
+     rulebook kernels, and the host operations that take its time);
+     print the card line, one JSON line of the kernels, then the result
+     line.
 """
 
 import json
@@ -127,11 +141,13 @@ TRAIN = dict(cfg=dict(ratio=2), B=2, V=131072, N=122880, img_hw=(384, 1280),
              total_steps=1000, grad_clip=35.0,
              # per step: 36 forward convs + 35 dX (every conv but the
              # input conv, whose features need no gradient); one dW per
-             # conv; 10 rulebook builds + the head's own-cell lookup; one
-             # pack for each of the four stages' rank tables (both
-             # samples in one launch)
+             # conv; 10 rulebook builds on rank tables, one fused launch
+             # each, + the head's own-cell lookup; one pack for each of the
+             # four stages' rank tables (both samples in one launch)
              per_step={"rulebook_conv": 71, "rulebook_conv_dw": 36,
-                       "rank_lookup": 11, "rank_pack": 4,
+                       "rulebook_rank": 10, "rulebook_cells": 0,
+                       "rulebook_decode": 0, "lookup_single": 1,
+                       "rank_lookup": 0, "rank_pack": 4,
                        "merge_lookup": 0})
 # small train step, card against CPU: loss terms relative; each gradient
 # tensor against the CPU's as (relative L2 norm, max |err| / max |CPU|),
@@ -163,6 +179,17 @@ MIN_PRED_CLASSES, MIN_SHARE_NOT_0, MAX_SHARE_ONE_CLASS = 4, 0.05, 0.9
 IMG_KEYS = ("image_features", "image_logits", "camera_semantic_embeddings")
 
 
+# launches per scan on stage tables (keys, keys, rank, rank), read from the
+# dispatch (sparse.build_rulebook): a KeyTable rulebook is the front end,
+# one merge and the decode (t1: subm1 down2; t2: subm2 inv2 down3), a
+# RankTable rulebook one fused launch (t3: subm3 inv3 down4; t4: subm4
+# inv4); the sorted head is one more merge; one pack per RankTable
+KEYS_KEYS_RANK_RANK = {"rulebook_conv": 36, "rulebook_conv_dw": 0,
+                       "rulebook_rank": 5, "rulebook_cells": 5,
+                       "rulebook_decode": 5, "lookup_single": 0,
+                       "rank_lookup": 0, "rank_pack": 2, "merge_lookup": 6}
+
+
 def main_paths():
     """The two main paths: model config, shapes, the table kind of each
     stage, and each kernel's launches per forward (read from the dispatch:
@@ -174,9 +201,12 @@ def main_paths():
         "semkitti": dict(
             cfg=dict(ratio=2), V=131072, N=122880, img_hw=(384, 1280),
             ncam=1, ncls=20, pcr=None, vsz=None, tables=("rank",) * 4,
-            # head: rulebook reuse, one own-cell rank lookup
+            # 10 fused rulebook launches on rank tables; head: rulebook
+            # reuse, one own-cell lookup
             per_forward={"rulebook_conv": 36, "rulebook_conv_dw": 0,
-                         "rank_lookup": 11, "rank_pack": 4,
+                         "rulebook_rank": 10, "rulebook_cells": 0,
+                         "rulebook_decode": 0, "lookup_single": 1,
+                         "rank_lookup": 0, "rank_pack": 4,
                          "merge_lookup": 0}),
         "semnusc": dict(
             cfg=dict(ratio=2, num_class=nu["num_class"], img_bf16=True,
@@ -184,11 +214,7 @@ def main_paths():
             V=nu["V"], N=nu["N"], img_hw=nu["img_hw"], ncam=nu["ncam"],
             ncls=nu["num_class"], pcr=nu["pcr"], vsz=nu["vsz"],
             tables=("keys", "keys", "rank", "rank"),
-            # merges: t1 subm1 down2, t2 subm2 inv2 down3, the sorted head;
-            # rank lookups: t3 subm3 inv3 down4, t4 subm4 inv4
-            per_forward={"rulebook_conv": 36, "rulebook_conv_dw": 0,
-                         "rank_lookup": 5, "rank_pack": 2,
-                         "merge_lookup": 6}),
+            per_forward=KEYS_KEYS_RANK_RANK),
     }
 
 
@@ -198,14 +224,18 @@ def log(*a):
 
 def wrappers():
     """The kernel wrappers by kernel name; each counts its launches."""
+    from lidarseg3d_torch.ops import rank_lookup as rl
     from lidarseg3d_torch.ops.merge_lookup import merge_cells
-    from lidarseg3d_torch.ops.rank_lookup import gather_cells
     from lidarseg3d_torch.ops.rank_pack import pack_rank_table
     from lidarseg3d_torch.ops.rulebook_conv import (rulebook_conv,
                                                     rulebook_conv_dw)
 
     return {"rulebook_conv": rulebook_conv,
-            "rulebook_conv_dw": rulebook_conv_dw, "rank_lookup": gather_cells,
+            "rulebook_conv_dw": rulebook_conv_dw,
+            "rulebook_rank": rl.rulebook_rank,
+            "rulebook_cells": rl.rulebook_cells,
+            "rulebook_decode": rl.rulebook_decode,
+            "lookup_single": rl.lookup_single, "rank_lookup": rl.gather_cells,
             "rank_pack": pack_rank_table, "merge_lookup": merge_cells}
 
 
@@ -442,11 +472,8 @@ def check_lookup(report, name, packed, cells):
     flat = packed.reshape(-1)
     idx = cells.reshape(-1).to(torch.int64)  # B == 1: flat index == cell
     row = dict(
-        name=f"rank_lookup[{name}]", route="cuda",
-        source="lidarseg3d_torch/csrc/rank_lookup.cu",
-        replaces=("lidarseg3d_tpu/ops/pallas_lookup.py:104"
-                  if packed.shape[1] * 4 > 12 * 2**20
-                  else "lidarseg3d_tpu/ops/pallas_lookup.py:69"),
+        name=f"rank_lookup[{name}]", route="cuda", source=RULEBOOK_SRC,
+        replaces=lookup_replaces(packed.shape[1]),
         launches=None, max_abs_err=0.0,
         bound_ms=(8.0 * q + 4.0 * touched) / PEAK_BYTES * 1e3,
         bound_by="bytes",
@@ -456,6 +483,281 @@ def check_lookup(report, name, packed, cells):
     log(f"  lookup {name}: nce={packed.shape[1]} queries={q} exact "
         f"{fmt_times(row)}")
     report.append(row)
+
+
+# UNetSCN3D.structures' rulebooks: the padding of the strided / inverse
+# pair into and out of stage i (stage 4's z has none)
+STAGE_PAD = {2: 1, 3: 1, 4: (0, 1, 1)}
+# the edge structure of phase 4: every cell of the six faces of this grid
+# active in sample 0, most of them in sample 1
+EDGE_GRID = (20, 64, 80)
+RULEBOOK_LIBRARY = "none (no one call builds a rulebook)"
+RULEBOOK_SRC = "lidarseg3d_torch/csrc/rank_lookup.cu"
+
+
+def lookup_replaces(nce):
+    """The TPU kernel a lookup on a table of ``nce`` cells replaces: the
+    VMEM-resident one up to the 12 MiB budget, else the HBM variant."""
+    return ("lidarseg3d_tpu/ops/pallas_lookup.py:104" if nce * 4 > 12 * 2**20
+            else "lidarseg3d_tpu/ops/pallas_lookup.py:69")
+
+
+def path_rulebooks(books):
+    """The 10 rulebooks of UNetSCN3D.structures: (name, the structure whose
+    rows the rulebook fills, the stage whose table it reads, spec)."""
+    from lidarseg3d_torch.ops import sparse as sp
+
+    out = [(f"subm{i}", books[f"s{i}"], i,
+            sp.subm_spec(books[f"t{i}"], books[f"s{i}"]))
+           for i in range(1, 5)]
+    for i in range(2, 5):
+        lo, hi, p = books[f"s{i}"], books[f"s{i - 1}"], STAGE_PAD[i]
+        out.append((f"down{i}", lo, i - 1,
+                    sp.strided_spec(books[f"t{i - 1}"], hi, 3, 2, p)))
+        out.append((f"inv{i}", hi, i,
+                    sp.inverse_spec(books[f"t{i}"], lo, 3, 2, p)))
+    return out
+
+
+def rulebook_rows(s):
+    """Valid rows of structure ``s`` (their coordinates are read)."""
+    return int(s.num_voxels.clamp(max=s.capacity).sum())
+
+
+def exact(what, got, want):
+    import torch
+
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        bad = int((got != want).sum()) if got.shape == want.shape else "all"
+        raise SystemExit(f"{what} differs from its reference at {bad} "
+                         "entries")
+
+
+def check_rulebook_rank(report, name, packed, s, spec, want=None):
+    """rulebook_rank against rulebook_rank_plain, exactly, twice (and
+    against ``want``, the path's own rulebook, if given); with a
+    ``report`` list also the timed row. Returns the rulebook."""
+    import torch
+    from lidarseg3d_torch.ops import rank_lookup as rl
+
+    c, n = s.coords, s.num_voxels
+
+    def run():
+        return rl.rulebook_rank(packed, c, n, spec)
+
+    def plain():
+        return rl.rulebook_rank_plain(packed, c, n, spec)
+
+    got, ref = run(), plain()
+    exact(f"rulebook_rank {name}", got, ref)
+    exact(f"rulebook_rank {name} (rerun)", run(), ref)
+    if want is not None:
+        exact(f"rulebook_rank {name} against the path's rulebook", got, want)
+    if report is None:
+        return got
+    cells, inb, _ = rl.rulebook_queries(c, n, spec)
+    B, nce = packed.shape
+    flat = (cells.long() + torch.arange(B, device=DEV).view(1, B, 1)
+            * nce)[inb]
+    sectors = int(torch.unique(flat >> 3).numel())
+    nbytes = 12 * rulebook_rows(s) + 4 * B + 32 * sectors + 4 * got.numel()
+    row = dict(name=f"rulebook_rank[{name}]", route="cuda",
+               source=RULEBOOK_SRC, replaces=lookup_replaces(nce),
+               launches=None, max_abs_err=0.0,
+               bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+               library=RULEBOOK_LIBRARY,
+               **timings(run, plain, plain_reps=5))
+    row["host_ms"] = host_ms(run)
+    take = lambda: torch.take(packed, flat)  # noqa: E731
+    row["partial_take_ms"] = cuda_time(take)
+    row["partial_take_device_ms"] = device_ms(take)
+    log(f"  rulebook {name} on a RankTable: K={got.shape[0]} B={B} "
+        f"V={got.shape[2]} nce={nce} in-grid queries={flat.numel()} sectors="
+        f"{sectors} exact {fmt_times(row)} host_ms={row['host_ms']:.4f} "
+        f"partial torch.take of the in-grid cells (gather only) "
+        f"ms={row['partial_take_ms']:.4f} (device "
+        f"{row['partial_take_device_ms']:.4f})")
+    report.append(row)
+    return got
+
+
+def check_rulebook_keys(report, name, table, s, spec, want=None):
+    """The KeyTable rulebook: rulebook_cells and rulebook_decode against
+    their plain versions exactly, around merge_cells, and the three
+    launches of sparse.build_rulebook equal to both (and to ``want``);
+    with a ``report`` list also the timed rows of the front end and the
+    decode, the decode's carrying the three launches' time. Returns the
+    rulebook."""
+    from lidarseg3d_torch.ops import rank_lookup as rl
+    from lidarseg3d_torch.ops import sparse as sp
+    from lidarseg3d_torch.ops.merge_lookup import merge_cells
+
+    c, n = s.coords, s.num_voxels
+    cells = rl.rulebook_cells(c, n, spec)
+    exact(f"rulebook_cells {name}", cells, rl.rulebook_cells_plain(c, n,
+                                                                   spec))
+    values = merge_cells(table.keys, table.coarse, table.shift, table.num,
+                         cells)
+    got = rl.rulebook_decode(values, c, n, spec)
+    exact(f"rulebook_decode {name}", got,
+          rl.rulebook_decode_plain(values, c, n, spec))
+    exact(f"KeyTable rulebook {name} (three launches)",
+          sp.build_rulebook(table, s, spec), got)
+    if want is not None:
+        exact(f"KeyTable rulebook {name} against the path's rulebook", got,
+              want)
+    if report is None:
+        return got
+    _, inb, _ = rl.rulebook_queries(c, n, spec)
+    B, V = c.shape[:2]
+    for kern, fn, plain, nbytes in (
+            ("rulebook_cells", lambda: rl.rulebook_cells(c, n, spec),
+             lambda: rl.rulebook_cells_plain(c, n, spec),
+             12 * B * V + 4 * B + 4 * cells.numel()),
+            ("rulebook_decode", lambda: rl.rulebook_decode(values, c, n, spec),
+             lambda: rl.rulebook_decode_plain(values, c, n, spec),
+             12 * rulebook_rows(s) + 4 * B + 4 * int(inb.sum())
+             + 4 * got.numel())):
+        row = dict(name=f"{kern}[{name}]", route="cuda", source=RULEBOOK_SRC,
+                   replaces="lidarseg3d_tpu/ops/pallas_lookup.py:69",
+                   launches=None, max_abs_err=0.0,
+                   bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+                   library=RULEBOOK_LIBRARY,
+                   **timings(fn, plain, plain_reps=5))
+        row["host_ms"] = host_ms(fn)
+        report.append(row)
+        log(f"  {kern} {name}: exact {fmt_times(row)} host_ms="
+            f"{row['host_ms']:.4f}")
+
+    def build():
+        return sp.build_rulebook(table, s, spec)
+
+    row.update(build_ms=cuda_time(build), build_device_ms=device_ms(build),
+               build_host_ms=host_ms(build))
+    log(f"  rulebook {name} on a KeyTable (front end, merge, decode): K="
+        f"{got.shape[0]} B={B} V={V} in-grid queries={int(inb.sum())} ms="
+        f"{row['build_ms']:.4f} (device {row['build_device_ms']:.4f}) "
+        f"host_ms={row['build_host_ms']:.4f}")
+    return got
+
+
+def check_path_rulebooks(report, path, books):
+    """Every rulebook of a path's structures through the fused kernel (a
+    RankTable) or the front end, merge and decode (a KeyTable) against the
+    plain versions and the path's own rulebook, timed on the path's table
+    kind; and, untimed, on a table of the other kind of the same stage."""
+    from lidarseg3d_torch.ops import coords as co
+
+    other = {}
+    for i in range(1, 5):
+        si = books[f"s{i}"]
+        build = (co.build_rank_table if isinstance(books[f"t{i}"],
+                                                   co.KeyTable)
+                 else co.build_key_table)
+        other[i] = build(si.coords, si.num_voxels, si.spatial_shape)
+    for name, s, i, spec in path_rulebooks(books):
+        label = f"{path} {name} B={s.batch_size} V={s.capacity}"
+        table, want = books[f"t{i}"], books[name]
+        if isinstance(table, co.KeyTable):
+            check_rulebook_keys(report, label, table, s, spec, want)
+            check_rulebook_rank(None, label, other[i].packed, s, spec, want)
+        else:
+            check_rulebook_rank(report, label, table.packed, s, spec, want)
+            check_rulebook_keys(None, label, other[i], s, spec, want)
+    log(f"  {path}: all 10 rulebooks exact on both table kinds")
+
+
+def check_single(report, name, packed, grid, q, ev):
+    """lookup_single against lookup_single_plain, exactly; with a
+    ``report`` list also the timed row."""
+    import torch
+    from lidarseg3d_torch.ops import rank_lookup as rl
+
+    def run():
+        return rl.lookup_single(packed, grid, q, ev)
+
+    def plain():
+        return rl.lookup_single_plain(packed, grid, q, ev)
+
+    (r, f), (wr, wf) = run(), plain()
+    exact(f"lookup_single {name} row", r, wr)
+    exact(f"lookup_single {name} found", f, wf)
+    if report is None:
+        return
+    B, nce = packed.shape
+    Q = q.shape[1]
+    flat = (rl.extended_cells(q, grid).clamp(0, nce - 1).long()
+            + torch.arange(B, device=DEV).view(B, 1) * nce).reshape(-1)
+    sectors = int(torch.unique(flat >> 3).numel())
+    nbytes = B * Q * (12 + (0 if ev is None else 1) + 4 + 1) + 32 * sectors
+    row = dict(name=f"lookup_single[{name}]", route="cuda",
+               source=RULEBOOK_SRC, replaces=lookup_replaces(nce),
+               launches=None, max_abs_err=0.0,
+               bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+               **timings(run, plain,
+                         lambda: torch.take(packed, flat)))
+    row["host_ms"] = host_ms(run)
+    log(f"  single-cell lookup {name}: B={B} Q={Q} nce={nce} found="
+        f"{int(f.sum())} exact {fmt_times(row)} host_ms="
+        f"{row['host_ms']:.4f} (library: torch.take of the cells)")
+    report.append(row)
+
+
+def check_edges(gen):
+    """The fused kernel, the front end and the decode on an edge-heavy
+    synthetic structure (B=2, ragged: all six faces of EDGE_GRID active in
+    sample 0, most of their cells in sample 1): subm, strided and inverse
+    rulebooks at padding 1 and (0, 1, 1) and the inverse with sx = 1, on
+    both table kinds, against the plain versions and each other; and the
+    single-cell lookup with queries far outside the grid."""
+    import torch
+    from lidarseg3d_torch.ops import coords as co
+    from lidarseg3d_torch.ops import sparse as sp
+
+    Z, Y, X = EDGE_GRID
+    z, y, x = torch.meshgrid(torch.arange(Z), torch.arange(Y),
+                             torch.arange(X), indexing="ij")
+    face = ((z == 0) | (z == Z - 1) | (y == 0) | (y == Y - 1) | (x == 0)
+            | (x == X - 1)).reshape(-1)
+    r = [torch.rand(Z * Y * X, generator=gen) for _ in range(2)]
+    keep = [face | (r[0] < 0.3), (face & (r[1] < 0.7)) | (r[1] < 0.05)]
+    n = [int(k.sum()) for k in keep]
+    cap = max(n) + 1000
+    coords = torch.full((2, cap, 3), -1, dtype=torch.int32)
+    for b, k in enumerate(keep):
+        coords[b, :n[b]] = torch.stack([z.reshape(-1)[k], y.reshape(-1)[k],
+                                        x.reshape(-1)[k]], -1).to(torch.int32)
+    s1 = sp.build_structure(coords.to(DEV), torch.tensor(n, device=DEV),
+                            EDGE_GRID)
+    tables = lambda s: (  # noqa: E731
+        co.build_rank_table(s.coords, s.num_voxels, s.spatial_shape),
+        co.build_key_table(s.coords, s.num_voxels, s.spatial_shape))
+    r1, k1 = tables(s1)
+    cases = [("subm", s1, r1, k1, sp.subm_spec(r1, s1))]
+    for stride, pad in ((2, 1), (2, (0, 1, 1)), ((2, 2, 1), 1)):
+        s2 = sp.downsample_structure(s1, stride, capacity=cap // 2,
+                                     padding=pad)
+        r2, k2 = tables(s2)
+        cases += [(f"strided {stride} pad {pad}", s2, r1, k1,
+                   sp.strided_spec(r1, s1, 3, stride, pad)),
+                  (f"inverse {stride} pad {pad}", s1, r2, k2,
+                   sp.inverse_spec(r2, s2, 3, stride, pad))]
+    for what, s, rt, kt, spec in cases:
+        label = f"edge {what}"
+        got = check_rulebook_rank(None, label, rt.packed, s, spec)
+        check_rulebook_keys(None, label, kt, s, spec, want=got)
+    q = torch.stack([torch.randint(-40, Z + 40, (2, 50000), generator=gen),
+                     torch.randint(-4, Y + 4, (2, 50000), generator=gen),
+                     torch.randint(-4, X + 4, (2, 50000), generator=gen)],
+                    -1).to(torch.int32).to(DEV)
+    ev = (torch.rand(2, 50000, generator=gen) < 0.9).to(DEV)
+    for e in (None, ev):
+        check_single(None, "edge", r1.packed, EDGE_GRID, q, e)
+    log(f"  edge structure {EDGE_GRID} B=2 voxels {n} capacity {cap}: "
+        f"{len(cases)} rulebooks exact on both table kinds (fused kernel; "
+        "front end, merge, decode), single-cell lookup exact with queries "
+        "outside every face")
 
 
 def host_ms(fn, reps=50):
@@ -622,13 +924,27 @@ def check_pack_graph(act, nce):
 
 
 def subm_stream(books, i):
-    """The cells the lookup kernel of stage ``i`` receives for its subm
-    rulebook (clipped and, on a KeyTable, clamped per row)."""
+    """The query cells of stage ``i``'s subm rulebook, as the front end
+    hands them to the merge kernel on a KeyTable (each query coordinate
+    clamped into the grid)."""
     from lidarseg3d_torch.ops import sparse as sp
+    from lidarseg3d_torch.ops.rank_lookup import rulebook_cells_plain
 
-    t = books[f"t{i}"]
-    cells, inb = sp.rank3_query_cells(t, *sp.subm_queries(books[f"s{i}"]))
-    return sp.kernel_cells(t, cells, inb)
+    s = books[f"s{i}"]
+    return rulebook_cells_plain(s.coords, s.num_voxels,
+                                sp.subm_spec(books[f"t{i}"], s))
+
+
+def head_queries(run):
+    """The point head's own-cell queries of a path's first example: the
+    points' voxel coordinates and validity, as grid_three_interpolate
+    hands them to coords.lookup_rank."""
+    from lidarseg3d_torch.ops.interpolate import _point_voxel_coords
+
+    head, ex = run["model"].point_head_mod, run["ex0"]
+    return (_point_voxel_coords(ex["points"][..., :3], head.voxel_size,
+                                head.point_cloud_range).contiguous(),
+            ex["point_valid"].contiguous())
 
 
 def kernel_checks(runs):
@@ -637,6 +953,7 @@ def kernel_checks(runs):
     import torch
     from lidarseg3d_torch.ops import coords as co
     from lidarseg3d_torch.ops import sparse as sp
+    from lidarseg3d_torch.ops.rank_lookup import rulebook_cells_plain
     from lidarseg3d_torch.ops.rank_pack import pack_rank_table_plain
 
     report = []
@@ -661,6 +978,10 @@ def kernel_checks(runs):
         f4 = torch.rand(1, s4.capacity, 256, generator=gen).to(DEV)
         check_conv(report, f"subm V={s4.capacity}", f4, books["subm4"], 256,
                    128, gen)
+        check_path_rulebooks(report, "semkitti", books)
+        check_single(report, f"semkitti head N={ex['points'].shape[1]}",
+                     books["t1"].packed, s1.spatial_shape,
+                     *head_queries(runs["semkitti"]))
 
         # the training step's kernels at its own shapes (B=2): dW, and the
         # forward kernel as dX under the transposed rulebook (a subm
@@ -691,6 +1012,10 @@ def kernel_checks(runs):
                    rnd(c2, 64), tb["inv2"], 64, 32, gen, dx=True)
         check_conv(report, f"dX of subm 256->128 B={B} V={c4}", rnd(c4, 128),
                    tb["subm4"], 128, 256, gen, dx=True)
+        check_path_rulebooks(report, "train", tb)
+        tq, tv = head_queries(runs["train"])
+        check_single(report, f"train head B={B} N={tq.shape[1]}",
+                     tb["t1"].packed, tb["s1"].spatial_shape, tq, tv)
         # the train step's stage-1 table: both samples in one pack
         ts1 = tb["s1"]
         tact = co.activity(ts1.coords, ts1.num_voxels, ts1.spatial_shape)
@@ -726,6 +1051,7 @@ def kernel_checks(runs):
                    nbooks["subm4"], 256, 128, gen)
         check_dw(report, f"semnusc subm V={ns1.capacity}", nst.features,
                  nbooks["subm1"], 12, 32, gen)
+        check_path_rulebooks(report, "semnusc", nbooks)
         s3 = nbooks["s3"]
         act3 = co.activity(s3.coords, s3.num_voxels, s3.spatial_shape)
         nce3 = act3.shape[1] - 1
@@ -761,6 +1087,7 @@ def kernel_checks(runs):
         ef2 = torch.rand(1, ecap, 32, generator=gen).to(DEV)
         check_conv(report, f"eval strided {ecap}->{eb['s2'].capacity}", ef2,
                    eb["down2"], 32, 64, gen)
+        check_path_rulebooks(report, "eval", eb)
         for i in (1, 2):
             Z, Y, X = eb[f"s{i}"].spatial_shape
             check_merge(report, f"eval stage-{i} subm {Z * Y * (X + 2)} "
@@ -787,14 +1114,17 @@ def kernel_checks(runs):
         tb = co.RankTable(packed=pack_rank_table_plain(actb, nce),
                           spatial_shape=(Z, Y, X))
         del actb
-        cells, inb = sp.rank3_query_cells(tb, *sp.subm_queries(sb))
-        check_lookup(report, f"{nce} cells", tb.packed,
-                     sp.kernel_cells(tb, cells, inb))
+        spec = sp.subm_spec(tb, sb)
+        cells = rulebook_cells_plain(big, nv, spec)
+        check_lookup(report, f"{nce} cells", tb.packed, cells)
         kt = co.build_key_table(big, nv, (Z, Y, X))
-        check_merge(report, f"{nce} cells", kt, sp.kernel_cells(kt, cells,
-                                                                inb),
-                    packed=tb.packed)
-        del tb, kt, cells
+        check_merge(report, f"{nce} cells", kt, cells, packed=tb.packed)
+        got = check_rulebook_rank(report, f"{nce}-cell subm V={V}", tb.packed,
+                                  sb, spec)
+        check_rulebook_keys(None, f"{nce}-cell subm V={V}", kt, sb, spec,
+                            want=got)
+        del tb, kt, cells, got
+        check_edges(gen)
     torch.cuda.empty_cache()
     return report
 
@@ -1535,11 +1865,11 @@ def run_eval_path(e=EVAL):
         per_scan = {k: n / max(nscan, 1) for k, n in launches.items()}
         log(f"  launches over {nscan} scans: {launches}; per scan "
             f"{per_scan}")
-        need = ("rulebook_conv", "rank_lookup", "merge_lookup", "rank_pack")
-        if nscan != e["frames"] or any(launches[k] <= 0 for k in need) \
-                or launches["rulebook_conv_dw"] != 0:
+        # the stage tables are (keys, keys, rank, rank), as on semnusc
+        want = {k: nscan * c for k, c in KEYS_KEYS_RANK_RANK.items()}
+        if nscan != e["frames"] or launches != want:
             raise SystemExit(f"phase 3d: {nscan} scans, launches "
-                             f"{launches}")
+                             f"{launches}, expected {want}")
 
         # predictions cover every point of each label file, in range, and
         # spread over the classes
@@ -1680,7 +2010,13 @@ def profile_call(fn, what, top=12, host_top=0):
     return share, per_name
 
 
-def profile_structures(r):
+# device kernels of one structures+rulebooks build before the fused
+# rulebook kernels, when a rulebook was ~90 small operations around one
+# gather (phase 5's profile on an H100 at 700 W; PERF.md)
+BUILD_KERNELS_BEFORE = {"semkitti": 855, "semnusc": 889, "eval": 890}
+
+
+def profile_structures(name, r):
     """Phase 5: the structures+rulebooks part of one scan of an inference
     path (the split's third span: stage structures, lookup tables and the
     10 rulebooks) under the profiler, after a warm call."""
@@ -1694,9 +2030,14 @@ def profile_structures(r):
         share, per_name = profile_call(
             lambda: model.backbone_mod.structures(st.structure),
             "structures+rulebooks build", top=15, host_top=15)
-    return dict(device_busy_share=share,
-                device_ms=sum(us for us, _ in per_name.values()) / 1e3,
-                kernels=sum(c for _, c in per_name.values()))
+    out = dict(device_busy_share=share,
+               device_ms=sum(us for us, _ in per_name.values()) / 1e3,
+               kernels=sum(c for _, c in per_name.values()))
+    log(f"  {name} build: {out['kernels']} device kernels (before the fused "
+        f"rulebook kernels: {BUILD_KERNELS_BEFORE[name]}), device "
+        f"{out['device_ms']:.3f} ms, busy share "
+        + ("not measured" if share is None else f"{100 * share:.1f}%"))
+    return out
 
 
 def conv_kernel_sums(per_name):
@@ -1786,7 +2127,7 @@ def main():
         r["result"]["conv_kernels"] = conv_kernel_sums(per_name)
         if name != "train":
             log(f"  {name}, structures+rulebooks of one scan:")
-            r["result"]["structures"] = profile_structures(r)
+            r["result"]["structures"] = profile_structures(name, r)
     log(json.dumps({"main_path": {n: r["result"] for n, r in runs.items()},
                     "seconds": time.perf_counter() - t_start}))
     log(card)

@@ -10,7 +10,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .rank_lookup import gather_cells
+from .rank_lookup import extended_cells, lookup_single
 from .rank_pack import pack_rank_table
 
 INVALID_KEY = 2**31 - 1  # sorts to the end; never a valid key
@@ -48,13 +48,6 @@ class RankTable:
     spatial_shape: tuple  # original (Z, Y, X)
 
 
-def extended_cells(coords, spatial_shape):
-    """(z, y, x) -> flat cell on the x-extended grid, (z*Y + y)*(X+2) + x+1."""
-    _, Y, X = (int(s) for s in spatial_shape)
-    return ((coords[..., 0] * Y + coords[..., 1]) * (X + 2)
-            + coords[..., 2] + 1)
-
-
 def activity(coords, num_voxels, spatial_shape):
     """[B, NCE + 1] int8 activity bitmap on the x-extended grid; invalid
     rows land on the scratch cell NCE. Plain PyTorch (it is XLA outside the
@@ -79,25 +72,14 @@ def build_rank_table(coords, num_voxels, spatial_shape):
                      spatial_shape=tuple(int(s) for s in spatial_shape))
 
 
-def rank_bits(v):
-    """packed value -> (rank, act(c-1), act(c), act(c+1))."""
-    return v >> 3, (v >> 2) & 1, (v >> 1) & 1, v & 1
-
-
 def lookup_rank(table: RankTable, qcoords, extra_valid=None):
     """Single-cell lookup: qcoords [B, Q, 3] (z, y, x) -> (row [B, Q] int32,
-    found [B, Q] bool). The gather is the rank_lookup kernel's, one group."""
-    Z, Y, X = (int(s) for s in table.spatial_shape)
-    nce = Z * Y * (X + 2)
-    bounds = torch.tensor([Z, Y, X], dtype=qcoords.dtype,
-                          device=qcoords.device)
-    inb = torch.all((qcoords >= 0) & (qcoords < bounds), dim=-1)
-    if extra_valid is not None:
-        inb = inb & extra_valid
-    cell = extended_cells(qcoords, table.spatial_shape).clamp(0, nce - 1)
-    v = gather_cells(table.packed, cell.to(torch.int32)[None].contiguous())[0]
-    rank, _, a0, _ = rank_bits(v)
-    return (rank - 1).to(torch.int32), inb & (a0 > 0)
+    found [B, Q] bool); one launch of rank_lookup.lookup_single on CUDA
+    tensors."""
+    return lookup_single(table.packed, table.spatial_shape,
+                         qcoords.to(torch.int32).contiguous(),
+                         None if extra_valid is None
+                         else extra_valid.contiguous())
 
 
 @dataclass

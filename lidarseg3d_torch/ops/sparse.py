@@ -12,10 +12,11 @@ Rulebooks are [K, B, V] global flat rows into the ``flat_features`` table
 sites default to the decimation rule ``floor(in / stride)``, as in the JAX
 package; ``rule="union"`` gives spconv's receptive-field union.
 
-Kernels on this path: the rank-table lookup (rulebook builds on a
-RankTable), the sorted-keys merge lookup (rulebook builds on a KeyTable),
-both through ``lookup_rank3_cells``, and the fused rulebook conv (every
-conv: forward, dX under the transposed rulebook and dW, through
+Kernels on this path: the fused rank-table rulebook build (one launch a
+rulebook on a RankTable, ``rank_lookup.rulebook_rank``), its front end and
+decode around the sorted-keys merge lookup (three launches a rulebook on a
+KeyTable), all through ``build_rulebook``, and the fused rulebook conv
+(every conv: forward, dX under the transposed rulebook and dW, through
 ``rulebook_conv.RulebookConvFn``).
 """
 
@@ -25,7 +26,8 @@ import torch
 
 from . import coords as coord_ops
 from .merge_lookup import merge_cells
-from .rank_lookup import gather_cells
+from .rank_lookup import (RulebookSpec, gather_cells, rank_bits,
+                          rulebook_cells, rulebook_decode, rulebook_rank)
 from .rulebook_conv import RulebookConvFn
 
 
@@ -69,8 +71,8 @@ def build_structure(coords, num_voxels, spatial_shape):
     """Create a SparseStructure from padded, key-sorted coords."""
     coord_ops.check_shape_fits_int32(spatial_shape)
     return SparseStructure(
-        coords=coords.to(torch.int32),
-        num_voxels=num_voxels.to(torch.int32),
+        coords=coords.to(torch.int32).contiguous(),
+        num_voxels=num_voxels.to(torch.int32).contiguous(),
         spatial_shape=tuple(int(s) for s in spatial_shape),
     )
 
@@ -118,15 +120,6 @@ def dense_table(s: SparseStructure):
     return coord_ops.build_key_table(s.coords, s.num_voxels, s.spatial_shape)
 
 
-def flatten_indices(idx, found, v_in):
-    """Per-sample rows [..., B, Q] -> global flat rows into [B*v_in + 1, C];
-    misses map to the shared zero row B*v_in."""
-    B = idx.shape[-2]
-    offs = (torch.arange(B, dtype=torch.int32, device=idx.device)
-            * v_in)[:, None]
-    return torch.where(found, idx + offs, B * v_in).to(torch.int32)
-
-
 def flat_features(features):
     """[B, V, C] -> [B*V + 1, C] with a trailing zero row for misses."""
     B, V, C = features.shape
@@ -134,26 +127,15 @@ def flat_features(features):
                       features.new_zeros(1, C)], dim=0)
 
 
-def rank3_query_cells(table, qc, gvalid):
-    """Grouped 3-x-tap queries: qc [G, B, V, 3] (z, y, x) with x in the
-    extended range [-1, X] -> (cell [G, B, V] int32 on the x-extended grid,
-    inb [G, B, V] validity)."""
-    Z, Y, X = (int(s) for s in table.spatial_shape)
-    z, y, x = qc[..., 0], qc[..., 1], qc[..., 2]
-    inb = ((z >= 0) & (z < Z) & (y >= 0) & (y < Y)
-           & (x >= -1) & (x <= X) & gvalid)
-    cell = coord_ops.extended_cells(qc, table.spatial_shape)
-    return cell.to(torch.int32), inb
-
-
 def kernel_cells(table, cell, inb):
-    """The query cells the lookup kernel of ``table`` receives: clipped to
-    the grid and, on a KeyTable, clamped per (group, sample) row to the
-    row's largest ``inb`` cell, as the JAX package's _merge_cells does for
-    its merge kernel and its XLA oracle alike. Only the ``inb`` positions
-    feed rulebooks, but the sorted devoxelization reads the own cell's
-    rank at every position, so the clamp decides which fallback voxel an
-    out-of-grid point gets.
+    """The query cells the sorted devoxelization hands the lookup kernel
+    of ``table``: clipped to the grid and, on a KeyTable, clamped per
+    (group, sample) row to the row's largest ``inb`` cell, as the JAX
+    package's _merge_cells does for its merge kernel and its XLA oracle
+    alike. The devoxelization reads the own cell's rank at every position,
+    so the clamp decides which fallback voxel an out-of-grid point gets. A
+    rulebook reads only its ``inb`` positions, so its build needs no clamp
+    (rank_lookup.rulebook_queries).
 
     RankTables are not clamped. That follows the JAX package on the CPU
     (its XLA gather, what the tests hold the port against); its Pallas
@@ -180,23 +162,11 @@ def lookup_rank3_cells(table, cell, inb):
                         cells)
     else:
         v = gather_cells(table.packed, cells)
-    rank, am, a0, ap = coord_ops.rank_bits(v)
+    rank, am, a0, ap = rank_bits(v)
     i32 = torch.int32
     return (((rank - a0 - 1).to(i32), inb & (am > 0)),
             ((rank - 1).to(i32), inb & (a0 > 0)),
             ((rank + ap - 1).to(i32), inb & (ap > 0)))
-
-
-def _lookup_rank3_groups(table, qc, gvalid):
-    return lookup_rank3_cells(table, *rank3_query_cells(table, qc, gvalid))
-
-
-def _stack_taps(lookups, v_in, G):
-    """Three (idx, found) [G, B, V] lookups -> [G*3, B, V] flat rulebook
-    in raster tap order (dx innermost)."""
-    out = torch.stack([flatten_indices(i, f, v_in) for i, f in lookups],
-                      dim=1)
-    return out.reshape(G * 3, *out.shape[2:])
 
 
 def _require_rank3(table, ks):
@@ -207,26 +177,33 @@ def _require_rank3(table, ks):
             f"3 wide in x; got {type(table).__name__}, kernel {ks}")
 
 
-def subm_queries(s: SparseStructure, kernel_size=3):
-    """Grouped queries of a submanifold rulebook: (qc [G, B, V, 3] centre
-    cells of the (dz, dy) groups, gvalid [G, B, V])."""
-    kz, ky, _ = _triple(kernel_size)
-    d = torch.tensor([(dz - kz // 2, dy - ky // 2, 0)
-                      for dz in range(kz) for dy in range(ky)],
-                     dtype=torch.int32, device=s.coords.device)
-    qc = s.coords[None] + d[:, None, None, :]
-    return qc, s.valid_mask()[None].expand(qc.shape[:-1])
+def build_rulebook(table, s: SparseStructure, spec: RulebookSpec):
+    """The [K, B, V] flat rulebook ``spec`` for the rows of ``s``: on a
+    RankTable one fused kernel (rank_lookup.rulebook_rank); on a KeyTable
+    the query cells, the merge lookup and the decode."""
+    if isinstance(table, coord_ops.KeyTable):
+        cells = rulebook_cells(s.coords, s.num_voxels, spec)
+        values = merge_cells(table.keys, table.coarse, table.shift,
+                             table.num, cells)
+        return rulebook_decode(values, s.coords, s.num_voxels, spec)
+    return rulebook_rank(table.packed, s.coords, s.num_voxels, spec)
+
+
+def subm_spec(table, s: SparseStructure, kernel_size=3):
+    """RulebookSpec of a submanifold conv on ``s``: stride 1, the kernel
+    centred (padding kz // 2, ky // 2 and 1 in x)."""
+    kz, ky, _ = ks = _triple(kernel_size)
+    _require_rank3(table, ks)
+    return RulebookSpec(False, kz, ky, (1, 1, 1), (kz // 2, ky // 2, 1),
+                        table.spatial_shape, s.capacity)
 
 
 def build_subm_rulebook(s: SparseStructure, kernel_size=3, table=None):
     """[K, B, V] flat rulebook of a submanifold conv on ``s``; each
     (dz, dy) group of three x-taps costs one table lookup."""
-    ks = _triple(kernel_size)
     if table is None:
         table = dense_table(s)
-    _require_rank3(table, ks)
-    return _stack_taps(_lookup_rank3_groups(table, *subm_queries(s, ks)),
-                       s.capacity, ks[0] * ks[1])
+    return build_rulebook(table, s, subm_spec(table, s, kernel_size))
 
 
 def delinearize(keys, spatial_shape):
@@ -307,84 +284,52 @@ def downsample_structure(st_struct: SparseStructure, stride, capacity,
                            spatial_shape=out_shape)
 
 
-def build_strided_rulebook(s_in: SparseStructure, out_struct: SparseStructure,
-                           kernel_size=3, stride=2, padding=1, table=None):
-    """Rulebook of a strided conv: input coord = o*stride + k - pad. The
-    x-taps query consecutive cells, so one gather at the middle cell serves
-    all three."""
+def strided_spec(table, s_in: SparseStructure, kernel_size=3, stride=2,
+                 padding=1):
+    """RulebookSpec of a strided conv reading ``s_in``: input coord =
+    o*stride + k - pad. The x-taps query consecutive cells, so one lookup
+    at the middle cell serves all three."""
     ks, sz, pad = _triple(kernel_size), _triple(stride), _triple(padding)
-    if table is None:
-        table = dense_table(s_in)
     _require_rank3(table, ks)
     if pad[2] > 2:
         raise NotImplementedError(f"x padding {pad[2]} > 2")
-    dev = out_struct.coords.device
-    base = out_struct.coords * torch.tensor(sz, dtype=torch.int32,
-                                            device=dev)
-    kz, ky, _ = ks
-    d = [(dz - pad[0], dy - pad[1]) for dz in range(kz) for dy in range(ky)]
-    dza = torch.tensor([a for a, _ in d], dtype=torch.int32,
-                       device=dev)[:, None, None]
-    dya = torch.tensor([b for _, b in d], dtype=torch.int32,
-                       device=dev)[:, None, None]
-    qc = torch.stack([
-        base[None, ..., 0] + dza,
-        base[None, ..., 1] + dya,
-        base[None, ..., 2] + torch.zeros_like(dza) + (1 - pad[2]),
-    ], dim=-1)  # [G, B, V, 3]
-    gvalid = out_struct.valid_mask()[None].expand(qc.shape[:-1])
-    return _stack_taps(_lookup_rank3_groups(table, qc, gvalid),
-                       s_in.capacity, kz * ky)
+    return RulebookSpec(False, ks[0], ks[1], sz, pad, table.spatial_shape,
+                        s_in.capacity)
+
+
+def build_strided_rulebook(s_in: SparseStructure, out_struct: SparseStructure,
+                           kernel_size=3, stride=2, padding=1, table=None):
+    """Rulebook of a strided conv from ``s_in`` onto ``out_struct``."""
+    if table is None:
+        table = dense_table(s_in)
+    return build_rulebook(table, out_struct, strided_spec(
+        table, s_in, kernel_size, stride, padding))
+
+
+def inverse_spec(table, s_low: SparseStructure, kernel_size=3, stride=2,
+                 padding=1):
+    """RulebookSpec of the inverse conv reading ``s_low``: source d =
+    (t + pad - k) / stride, valid iff the division is exact (the exact
+    transpose of the strided rulebook). With sx=2 the two same-parity x
+    numerators of a group map to consecutive source cells, so one lookup
+    still serves the group."""
+    ks, sz, pad = _triple(kernel_size), _triple(stride), _triple(padding)
+    _require_rank3(table, ks)
+    if sz[2] not in (1, 2):
+        raise NotImplementedError(f"x stride {sz[2]}")
+    return RulebookSpec(True, ks[0], ks[1], sz, pad, table.spatial_shape,
+                        s_low.capacity)
 
 
 def build_inverse_rulebook(s_low: SparseStructure,
                            target_struct: SparseStructure, kernel_size=3,
                            stride=2, padding=1, table=None):
-    """Rulebook of the inverse conv: source d = (t + pad - k) / stride,
-    valid iff the division is exact (the exact transpose of the strided
-    rulebook). With sx=2 the two same-parity x numerators of a group map to
-    consecutive source cells, so one gather still serves the group."""
-    ks, sz, pad = _triple(kernel_size), _triple(stride), _triple(padding)
+    """Rulebook of the inverse conv from ``s_low`` back onto
+    ``target_struct``."""
     if table is None:
         table = dense_table(s_low)
-    _require_rank3(table, ks)
-    if sz[2] not in (1, 2):
-        raise NotImplementedError(f"x stride {sz[2]}")
-    tc = target_struct.coords
-    dev = tc.device
-    kz, ky, _ = ks
-    sxi = sz[2]
-    miss = target_struct.batch_size * s_low.capacity
-    d = [(dz, dy) for dz in range(kz) for dy in range(ky)]
-    dza = torch.tensor([a for a, _ in d], dtype=torch.int32,
-                       device=dev)[:, None, None]
-    dya = torch.tensor([b for _, b in d], dtype=torch.int32,
-                       device=dev)[:, None, None]
-    num_z = tc[None, ..., 0] + pad[0] - dza
-    num_y = tc[None, ..., 1] + pad[1] - dya
-    ez = num_z % sz[0] == 0
-    ey = num_y % sz[1] == 0
-    zq = torch.div(num_z, sz[0], rounding_mode="floor")
-    yq = torch.div(num_y, sz[1], rounding_mode="floor")
-    n0 = tc[None, ..., 2] + pad[2]  # [1, B, V]
-    gvalid = target_struct.valid_mask()[None] & ez & ey
-    center = (n0 - 1) if sxi == 1 else ((n0 - 1) >> 1)
-    qc = torch.stack([zq, yq, center.expand(zq.shape)], dim=-1)
-    (im, fm), (i0, f0), (ip, fp) = _lookup_rank3_groups(table, qc, gvalid)
-    v_lo = s_low.capacity
-    gm, g0, gp = (flatten_indices(i, f, v_lo)
-                  for i, f in ((im, fm), (i0, f0), (ip, fp)))
-    if sxi == 1:
-        # dx=0 -> cell n0 (=center+1), dx=1 -> n0-1, dx=2 -> n0-2
-        out = torch.stack([gp, g0, gm], dim=1)
-    else:
-        even = ((n0 & 1) == 0).expand(gp.shape)
-        # even n0: dx=0 at cell n0/2 (=g+1), dx=2 at n0/2-1 (=g);
-        # odd n0: dx=1 at (n0-1)/2 (=g)
-        out = torch.stack([torch.where(even, gp, miss),
-                           torch.where(even, miss, g0),
-                           torch.where(even, g0, miss)], dim=1)
-    return out.reshape(kz * ky * 3, *out.shape[2:]).to(torch.int32)
+    return build_rulebook(table, target_struct, inverse_spec(
+        table, s_low, kernel_size, stride, padding))
 
 
 def _conv(features, weights, rulebook, rulebook_t=None):

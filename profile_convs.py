@@ -9,8 +9,9 @@ imported and whose kernels are built; the measuring code is this file's and
 chip_smoke.py's, so an older tree is measured the same way as this one.
 It builds the kernels, takes the semkitti training step of chip_smoke.py
 phase 3c (fp32, B=2; one warm step, one counted step whose launches must be
-71 conv / 36 dW / 11 lookup and 4 packs, one per table; 8 in a tree
-whose pack is still per sample, which has no ``rank_pack.TILE``) and
+chip_smoke.py's TRAIN per_step: 71 conv / 36 dW / 10 fused rulebook
+builds / 1 own-cell lookup and 4 packs, one per table; the tree needs
+the wrappers chip_smoke.wrappers names) and
 profiles one more step, then profiles one semkitti scan and one semnusc
 scan (each after a warm one), and prints each profile's busy time, the summed device time and
 launches of every conv / dW kernel name, and the sums of the rank-table
@@ -25,10 +26,12 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # kernel names of the table kernels in a profile, this tree's and older
-# trees' (the pack was three kernels before it was one)
+# trees' (the pack was three kernels before it was one; a rulebook was one
+# gather_cells among plain operations before the fused rulebook kernels)
 TABLE_KERNELS = {"pack": ("rank_pack_kernel", "block_counts", "scan_blocks",
                           "pack_write"),
-                 "lookup": ("gather_cells",),
+                 "lookup": ("gather_cells", "rulebook_kernel",
+                            "single_kernel"),
                  "merge": ("merge_lookup_kernel",)}
 
 
@@ -94,10 +97,7 @@ def main():
     state, _ = step(state, exs[1])
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in ws.items()}
-    from lidarseg3d_torch.ops import rank_pack
     want = dict(t["per_step"])
-    if not hasattr(rank_pack, "TILE"):  # a pack call per sample and table
-        want["rank_pack"] = t["B"] * t["per_step"]["rank_pack"]
     if launches != want:
         raise SystemExit(f"train step launches {launches}, expected {want}")
     log(f"train step launches: {launches}")

@@ -115,9 +115,8 @@ def streams(cs):
         nv = torch.tensor([V], dtype=torch.int32, device=cs.DEV)
         kt = co.build_key_table(big, nv, (Z, Y, X))
         sb = sp.build_structure(big, nv, (Z, Y, X))
-        cells, inb = sp.rank3_query_cells(kt, *sp.subm_queries(sb))
-        out[f"{Z * Y * (X + 2)} cells"] = (kt, sp.kernel_cells(kt, cells,
-                                                               inb))
+        out[f"{Z * Y * (X + 2)} cells"] = (kt, cs.subm_stream(
+            dict(s1=sb, t1=kt), 1))
     torch.cuda.empty_cache()
     return out
 

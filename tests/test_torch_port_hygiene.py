@@ -1,6 +1,6 @@
 """Hygiene of the port: lidarseg3d_torch (its solver, apis, losses,
-datasets and tools included), chip_smoke.py, profile_convs.py and
-profile_merge.py import nothing of JAX, Flax, optax, the JAX package or
+datasets and tools included), chip_smoke.py and the profile_*.py
+scripts import nothing of JAX, Flax, optax, the JAX package or
 __graft_entry__, and no image library (cv2, PIL, imageio: the card's
 machine has none); the entry points run on cuda unless told otherwise;
 the constants the CPU emulations read from the kernel wrappers are the
@@ -23,7 +23,8 @@ EVAL_MODULES = ("tools/test.py", "apis/eval.py", "core/seg_metrics.py",
                 "datasets/pipelines/img_transforms.py",
                 "datasets/pipelines/seg_preprocess.py",
                 "datasets/semantickitti/dataset.py", "parallel/dist.py")
-SCRIPTS = ("chip_smoke.py", "profile_convs.py", "profile_merge.py")
+SCRIPTS = ("chip_smoke.py", "profile_build.py", "profile_convs.py",
+           "profile_merge.py")
 
 
 def _files():

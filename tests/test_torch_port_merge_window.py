@@ -7,10 +7,11 @@ device memory for a query outside it) and the neighbour bits decided from
 the three keys below each search's result. A query served from the window
 reads only window positions (the emulation indexes a copy of the window).
 Three streams: the main path's subm query streams on a small KeyTable
-(clipped and clamped per row, as ``sparse.kernel_cells`` hands them to the
-kernel), the same streams shuffled, and rows whose tails are clamped to
-the row's largest cell; and the semnusc path's own streams at full size,
-where every tile but those at a row's padding is served from its window.
+(each query coordinate clamped into the grid, as the rulebook front end
+``rank_lookup.rulebook_cells`` hands them to the kernel), the same streams
+shuffled, and rows whose tails are clamped to the row's largest cell; and
+the semnusc path's own streams at full size, where every tile but those
+at a row's padding is served from its window.
 The kernel runs only on the card (chip_smoke.py phase 4)."""
 
 import numpy as np
@@ -20,6 +21,7 @@ from lidarseg3d_torch import synthetic as syn
 from lidarseg3d_torch.ops import coords as tco
 from lidarseg3d_torch.ops import merge_lookup as ml
 from lidarseg3d_torch.ops import sparse as tsp
+from lidarseg3d_torch.ops.rank_lookup import rulebook_cells
 
 from _torch_port_helpers import n, t
 
@@ -128,8 +130,8 @@ def _structure(seed, shape=(6, 40, 60), V=1500, nvox=(1200, 700)):
 def _subm_stream(s, shift):
     table = tco.build_key_table(s.coords, s.num_voxels, s.spatial_shape,
                                 shift=shift)
-    cells, inb = tsp.rank3_query_cells(table, *tsp.subm_queries(s))
-    return table, tsp.kernel_cells(table, cells, inb)
+    return table, rulebook_cells(s.coords, s.num_voxels,
+                                 tsp.subm_spec(table, s))
 
 
 def _streams(kind, seed, shift):
@@ -170,9 +172,9 @@ def test_semnusc_streams():
     scan at V=40960 on the 41 x 1024 x 1024 grid, stage 1 and its 2x
     downsampled stage 2), sorted as the path sends them: the kernel's
     result equals the plain version; every tile is served from its window
-    but at most two a row, where queries that left the grid are clipped to
-    its first cell (a row's first tile) or the row ends in padding, whose
-    cells are 0 too (the tile at its last voxels); and a search spans the
+    but at most two a row, where queries that left the grid are clamped to
+    its first cells (a row's first tile) or the row ends in padding, whose
+    cells are 0 (the tile at its last voxels); and a search spans the
     keys of one 4096-cell block (that of q+1)."""
     nu = syn.SEMNUSC
     b = syn.synthetic_batch(1, nu["V"], nu["N"], pcr=nu["pcr"],
