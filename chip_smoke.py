@@ -57,6 +57,23 @@ Phases (each fails loudly with a non-zero exit):
      at its published size through the same entry point on the CPU, and
      the mini config card against CPU (labels 99.9%, mIoU within 0.1
      point, each);
+  3e. train entry: the same published config trained at full width and
+     depth through the entry point lidarseg3d_torch.tools.train (main,
+     in-process; B=2 = samples_per_gpu, seeded weights, the config's
+     missing pretrained file loads nothing) on a seeded tree of one frame
+     in each of its ten train sequences (120,000-125,000 points, 1241x376
+     PNGs) through the train pipeline (augmentations, colour jitter, JPEG
+     round trip, label splat), the loader and train_segmentor:
+     --total_epochs 2 --max_steps_per_epoch 3, which must write epoch_1,
+     epoch_2 and latest.txt, then --resume_from --total_epochs 3, whose
+     loaded state must equal the saved one exactly and which must start
+     at global step 6; check every loss term and the gradient norm
+     finite, every parameter outside the frozen stages moved, each step's
+     launches of every kernel (those of phase 3d's tables keys, keys,
+     rank, rank, plus 35 dX convs and 36 dW), the table kinds; print the
+     step times (host clock to a synchronisation) and their p50 after the
+     first, the loader's wait per step, the train pipeline's ms per frame
+     by stage on one thread and the peak memory;
   4. hold each kernel against its plain version on the card at each main
      path's shapes, from a real scan of that path: the rulebook conv in
      fp32 and bf16 (stage-1 subm, stage-1->2 strided, stage-4 subm; and as
@@ -76,8 +93,11 @@ Phases (each fails loudly with a non-zero exit):
      (41x1504x1506); and, from a scan of the eval path (phase 3d), the
      conv at its stage-1 subm and stride-2 shapes, the merge on its
      stage-1 and stage-2 KeyTables, the pack and lookup on its stage-3
-     RankTable. The rulebook lookups: all 10 rulebooks of each path's
-     structures (semkitti, train at B=2, semnusc, eval), each exactly
+     RankTable; from a batch of the train entry path (phase 3e, B=2), the
+     conv, dX and dW at its stage-1 shape and the merge on its stage-1 and
+     stage-2 KeyTables. The rulebook lookups: all 10 rulebooks of each
+     path's structures (semkitti, train at B=2, semnusc, eval, train
+     entry at B=2), each exactly
      against its plain version and the path's own rulebook on both table
      kinds (the fused kernel on a RankTable; the front end, merge and
      decode on a KeyTable), timed on the path's own kind with the bytes
@@ -96,7 +116,7 @@ Phases (each fails loudly with a non-zero exit):
      times torch.cumsum of the bitmap and the merge row
      torch.searchsorted, partial yardsticks that give the rank field only;
   5. profile one scan of each inference path (the eval path included)
-     and one train step (device
+     and one train step of each training path (device
      busy share and the kernels that take the time), and the
      structures+rulebooks part of one scan of each inference path (its
      device kernels and launches beside the count before the fused
@@ -171,6 +191,20 @@ EVAL = dict(config="configs/semantickitti/MSeg3D/"
             frames=20, points=(120000, 125000), seed=0, image_hw=(376, 1241),
             max_range=75.0, mini="configs/tests/mini_semkitti_mseg3d.py",
             ncls=20)
+# phase 3e: the published config trained through the entry point
+# lidarseg3d_torch.tools.train at B=2 (samples_per_gpu) on a seeded tree
+# of one frame in each of its ten train sequences: 2 epochs of 3 steps,
+# then a resume for a third epoch. Per step on tables (keys, keys, rank,
+# rank), read from the dispatch: phase 3d's rulebooks, merges and packs,
+# 36 forward + 35 dX convs (the input conv's features need no gradient)
+# and one dW per conv
+TRAIN_ENTRY = dict(frames=1, points=(120000, 125000), seed=1,
+                   image_hw=(376, 1241), max_range=75.0, epochs=2, steps=3,
+                   per_step={"rulebook_conv": 71, "rulebook_conv_dw": 36,
+                             "rulebook_rank": 5, "rulebook_cells": 5,
+                             "rulebook_decode": 5, "lookup_single": 0,
+                             "rank_lookup": 0, "rank_pack": 2,
+                             "merge_lookup": 6})
 # card vs CPU through the entry point (phase 3's limits)
 MIN_LABEL_AGREE, MAX_MIOU_POINTS = 0.999, 0.1
 # phase 3d's labels must spread: classes predicted besides the ignore class
@@ -1100,6 +1134,34 @@ def kernel_checks(runs):
                      subm_stream(eb, 3))
         del eb, est, ef2, eact3
 
+        # the train entry path (phase 3e): the published config at B=2,
+        # its conv, dX and dW at the stage-1 shape (2 x up to 160000 rows),
+        # every rulebook on both table kinds and the merge on its stage-1
+        # and stage-2 KeyTables
+        xmodel, xex = runs["train_entry"]["model"], runs["train_entry"]["ex0"]
+        xst = xmodel.lidar_input(xex)
+        xb = xmodel.backbone_mod.structures(xst.structure)
+        XB, XV = xst.features.shape[:2]
+        log("  train entry stage voxels: " + " ".join(
+            f"s{i}={xb[f's{i}'].num_voxels.tolist()}/{xb[f's{i}'].capacity}"
+            for i in range(1, 5)))
+        x32 = torch.rand(XB, XV, 32, generator=gen).to(DEV)
+        check_conv(report, f"train01 subm B={XB} V={XV}", xst.features,
+                   xb["subm1"], 12, 32, gen)
+        check_conv(report, f"dX of subm 32->32 train01 B={XB} V={XV}", x32,
+                   xb["subm1"], 32, 32, gen, dx=True)
+        check_dw(report, f"train01 subm B={XB} V={XV}", xst.features,
+                 xb["subm1"], 12, 32, gen)
+        check_dw(report, f"train01 subm B={XB} V={XV}", x32, xb["subm1"], 32,
+                 32, gen)
+        check_path_rulebooks(report, "train01", xb)
+        for i in (1, 2):
+            Z, Y, X = xb[f"s{i}"].spatial_shape
+            check_merge(report, f"train01 stage-{i} subm B={XB} "
+                        f"{Z * Y * (X + 2)} cells", xb[f"t{i}"],
+                        subm_stream(xb, i))
+        del xb, xst, x32
+
         # the 0.1 m SemanticKITTI grid: 41 x 1504 x (1504 + 2) cells, with
         # the scan's voxels spread over it key-sorted
         Z, Y, X = BIG_GRID
@@ -1668,14 +1730,18 @@ def label_agreement(got, want):
 
 
 def host_pipeline_ms(dataset, cap):
-    """Host milliseconds per frame of each stage of the val pipeline and of
-    the collate, one frame at a time on one thread."""
+    """Host milliseconds per frame of each stage of the dataset's pipeline
+    (val or train, as its test_mode says; frame i draws from a generator
+    seeded with i) and of the collate, one frame at a time on one
+    thread."""
+    import numpy as np
     from lidarseg3d_torch.datasets import collate_segnet
 
     ms = {}
     for i in range(len(dataset)):
         info = dataset.load_infos(i)
-        sample = {"mode": "val", "rng": None,
+        sample = {"mode": "val" if dataset.test_mode else "train",
+                  "rng": np.random.default_rng(i),
                   "metadata": {"token": info["token"],
                                "num_point_features": 4}}
         for t in dataset.pipeline.transforms:
@@ -1959,6 +2025,256 @@ def run_eval_path(e=EVAL):
                 path=dict(V=cap["max_voxels"], N=cap["max_points"]))
 
 
+def state_equals_checkpoint(state, path):
+    """Whether the train state holds exactly what the checkpoint file at
+    ``path`` does: every parameter and buffer, the Adam count, mu and nu,
+    the step and the dropout generator. -> list of what differs."""
+    import torch
+
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    bad = [k for k, v in state.model.state_dict().items()
+           if not torch.equal(v.cpu(), ckpt["model"][k])]
+    opt = state.opt_state
+    if opt.count != ckpt["optimizer"]["count"]:
+        bad.append("adam count")
+    bad += [f"adam {n}[{i}]" for n in ("mu", "nu")
+            for i, (a, b) in enumerate(zip(getattr(opt, n),
+                                           ckpt["optimizer"][n], strict=True))
+            if not torch.equal(a.cpu(), b)]
+    if state.step != ckpt["step"]:
+        bad.append("step")
+    if not torch.equal(state.generator.get_state(), ckpt["generator"]):
+        bad.append("generator")
+    return bad
+
+
+def train_entry_hook(ws, per_step, record):
+    """A TrainerHook that, after every step, holds each kernel's launches
+    since the last step to ``per_step`` and the step's loss terms to
+    finite values (kept in record["losses"]), snapshots the parameters at
+    the start, and checks at the end that every parameter outside the
+    frozen stages moved (their count in record["moved"])."""
+    import math
+
+    import torch
+    from lidarseg3d_torch.apis.train import TrainerHook
+
+    class Hook(TrainerHook):
+        def before_run(self, state, loop):
+            self.last = {k: w.launches for k, w in ws.items()}
+            frozen = set(state.model.frozen_parameters())
+            self.before = {k: p.detach().clone() for k, p in
+                           state.model.named_parameters() if k not in frozen}
+
+        def after_iter(self, state, ldict, global_step):
+            vals = {k: float(v) for k, v in ldict.items()}
+            bad = [k for k, v in vals.items() if not math.isfinite(v)]
+            if bad or "grad_norm" not in vals:
+                raise SystemExit(f"phase 3e step {global_step}: non-finite "
+                                 f"or missing loss terms {bad}: {vals}")
+            now = {k: w.launches for k, w in ws.items()}
+            delta = {k: now[k] - self.last[k] for k in ws}
+            self.last = now
+            if delta != per_step:
+                raise SystemExit(f"phase 3e step {global_step}: launches "
+                                 f"{delta}, expected {per_step}")
+            record.setdefault("losses", []).append((global_step, vals))
+
+        def after_run(self, state):
+            params = dict(state.model.named_parameters())
+            still = [k for k, p in self.before.items()
+                     if torch.equal(p, params[k])
+                     or not torch.isfinite(params[k]).all()]
+            if still:
+                raise SystemExit(f"phase 3e: {len(still)} parameters outside "
+                                 f"the frozen stages did not move or are not "
+                                 f"finite: {still[:5]}")
+            record["moved"] = len(self.before)
+
+    return Hook()
+
+
+def run_train_entry(t=TRAIN_ENTRY, e=EVAL):
+    """Phase 3e: the published SemanticKITTI config trained through the
+    entry point (lidarseg3d_torch.tools.train main, in-process, B=2) on a
+    seeded tree of one frame in each train sequence: --total_epochs 2
+    --max_steps_per_epoch 3, then --resume_from --total_epochs 3, with
+    the checks of train_entry_hook and of the resumed state; the step
+    time, the loader's wait, the train pipeline's time per stage and the
+    peak memory. Returns the run for phases 4 and 5."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from lidarseg3d_torch.apis import train as tr
+    from lidarseg3d_torch.datasets import SegDataLoader, build_dataset
+    from lidarseg3d_torch.ops import coords as co
+    from lidarseg3d_torch.solver.optim import build_one_cycle_optimizer
+    from lidarseg3d_torch.synthetic import (write_eval_config,
+                                            write_semantickitti_tree)
+    from lidarseg3d_torch.tools import test as eval_tool
+    from lidarseg3d_torch.tools import train as tool
+    from lidarseg3d_torch.utils.config import Config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="semkitti_train_")
+    try:
+        base = Config.fromfile(os.path.join(here, e["config"]))
+        seqs = list(base.train_seq)
+        data_root = os.path.join(tmp, "sequences")
+        t0 = time.perf_counter()
+        write_semantickitti_tree(data_root, seqs, frames=t["frames"],
+                                 points=t["points"], seed=t["seed"],
+                                 image_hw=t["image_hw"],
+                                 max_range=t["max_range"])
+        cfg_path = write_eval_config(os.path.join(tmp, "train.py"),
+                                     os.path.join(here, e["config"]),
+                                     data_root)
+        cfg = Config.fromfile(cfg_path)
+        cap, ishape = cfg.capacity, eval_tool.input_shape_of(cfg)
+        B = cfg.data.samples_per_gpu
+        H, W = t["image_hw"]
+        log(f"  tree: sequences {seqs}, {t['frames']} frame each of "
+            f"{t['points'][0]}-{t['points'][1]} points and {W}x{H} images "
+            f"written in {time.perf_counter() - t0:.2f} s; B={B}, grid "
+            f"{ishape}, capacity {dict(cap)}, pretrained "
+            f"{cfg.model.img_backbone.get('pretrained')} (missing: not "
+            "loaded)")
+        work = os.path.join(tmp, "work")
+        args = [cfg_path, "--work_dir", work, "--max_steps_per_epoch",
+                str(t["steps"]), "--device", DEV]
+
+        ws = wrappers()
+        record, timings = {}, []
+        for w in ws.values():
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        cwd = os.getcwd()
+        os.chdir(tmp)  # the config's relative pretrained path is missing
+        try:
+            tool.main(args + ["--total_epochs", str(t["epochs"])],
+                      hooks=[train_entry_hook(ws, t["per_step"], record)],
+                      timings=timings)
+            torch.cuda.synchronize()
+            launches = {k: w.launches for k, w in ws.items()}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            nsteps = t["epochs"] * t["steps"]
+            files = sorted(os.listdir(work))
+            want_files = [f"epoch_{i + 1}" for i in range(t["epochs"])] + [
+                "latest.txt", "train.log"]
+            if files != want_files or len(timings) != nsteps:
+                raise SystemExit(f"phase 3e: {files} after {len(timings)} "
+                                 f"steps, expected {want_files} after "
+                                 f"{nsteps}")
+            with open(os.path.join(work, "latest.txt")) as f:
+                latest = f.read().strip()
+            if latest != f"epoch_{t['epochs']}":
+                raise SystemExit(f"phase 3e: latest.txt names {latest}")
+            want = {k: nsteps * c for k, c in t["per_step"].items()}
+            if launches != want:
+                raise SystemExit(f"phase 3e: launches {launches}, expected "
+                                 f"{want}")
+            log(f"  {nsteps} steps over {t['epochs']} epochs: launches "
+                f"{launches} (per step {t['per_step']}); "
+                f"{record['moved']} parameters outside the frozen stages "
+                f"all moved; wrote {files}")
+            for step, vals in record["losses"]:
+                log(f"  step {step}: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in vals.items()))
+
+            # the resume: the state it loads equals the saved one exactly
+            class Check(tr.TrainerHook):
+                def before_run(self, state, loop):
+                    self.diff = state_equals_checkpoint(
+                        state, os.path.join(work, latest))
+                    self.start = (int(state.step),
+                                  int(state.opt_state.count))
+
+                def after_iter(self, state, ldict, global_step):
+                    self.first = getattr(self, "first", global_step)
+
+            check = Check()
+            out = tool.main(args + ["--resume_from", "--total_epochs",
+                                    str(t["epochs"] + 1)],
+                            hooks=[check, train_entry_hook(
+                                ws, t["per_step"], record)])
+        finally:
+            os.chdir(cwd)
+        if check.diff or check.start != (nsteps, nsteps) \
+                or check.first != nsteps:
+            raise SystemExit(f"phase 3e resume: differs from {latest} in "
+                             f"{check.diff[:5]}; starts at {check.start}, "
+                             f"first step {check.first}, expected {nsteps}")
+        log(f"  resume: the state loaded from {latest} equals the saved one "
+            f"exactly (every parameter and buffer, Adam count / mu / nu, "
+            f"step, generator); it started at global step {check.first} "
+            f"and ran {t['steps']} more steps")
+
+        steps = np.asarray([x["step_s"] for x in timings[1:]]) * 1e3
+        waits = np.asarray([x["data_s"] for x in timings]) * 1e3
+        log(f"  per-step ms (host clock to a synchronisation, B={B}): "
+            f"{[round(x['step_s'] * 1e3, 2) for x in timings]}; after the "
+            f"first: p50 {np.percentile(steps, 50):.2f}, mean "
+            f"{steps.mean():.2f}; loader wait per step ms "
+            f"{[round(float(v), 2) for v in waits]} (p50 "
+            f"{np.percentile(waits, 50):.2f}, after the first "
+            f"{waits[1:].mean():.2f} mean); peak memory {peak:.2f} GiB")
+
+        # the stage tables of the first batch, and the example of phase 4
+        state = out["state"]
+        model = state.model
+        ds = build_dataset(cfg.data.train.to_dict())
+        with SegDataLoader(ds, B, cap["max_voxels"], cap["max_points"],
+                           shuffle=False, num_workers=2,
+                           on_overflow="error") as loader:
+            ex0 = tr.example_to_device(next(loader.epoch(0)), DEV)
+        ex0["input_shape"] = ishape
+        with torch.inference_mode():
+            books = model.backbone_mod.structures(
+                model.lidar_input(ex0).structure)
+        kinds = tuple("keys" if isinstance(books[f"t{i}"], co.KeyTable)
+                      else "rank" for i in range(1, 5))
+        nv = [int(books[f"s{i}"].num_voxels.sum()) for i in range(1, 5)]
+        del books
+        log(f"  stage tables {kinds}; voxels of the first batch by stage "
+            f"{nv}")
+        if kinds != ("keys", "keys", "rank", "rank"):
+            raise SystemExit(f"phase 3e: table kinds {kinds}")
+        pipe = host_pipeline_ms(ds, cap)
+        log("  train pipeline ms per frame (one thread): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in pipe.items()))
+        # the loader alone, the config's thread count, no step competing
+        nworkers = cfg.data.get("workers_per_gpu", 4)
+        with SegDataLoader(ds, B, cap["max_voxels"], cap["max_points"],
+                           seed=7, num_workers=nworkers,
+                           on_overflow="error") as loader:
+            t0 = time.perf_counter()
+            nb = len(list(loader.epoch(0)))
+            loader_ms = (time.perf_counter() - t0) * 1e3 / nb
+        log(f"  the loader alone ({nworkers} threads): {nb} batches of {B} "
+            f"frames, {loader_ms:.2f} ms a batch, against a step p50 of "
+            f"{np.percentile(steps, 50):.2f} ms")
+        opt, _ = build_one_cycle_optimizer(
+            dict(cfg.optimizer), dict(cfg.lr_config),
+            (t["epochs"] + 1) * t["steps"],
+            grad_clip=cfg.optimizer_config.grad_clip.max_norm)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result = dict(p50_ms=float(np.percentile(steps, 50)),
+                  mean_ms=float(steps.mean()), steps_timed=len(steps),
+                  step_ms=[x["step_s"] * 1e3 for x in timings],
+                  data_wait_ms=waits.tolist(),
+                  data_wait_p50_ms=float(np.percentile(waits, 50)),
+                  peak_memory_gib=peak, launches_per_step=t["per_step"],
+                  tables=list(kinds), voxels_first_batch=nv,
+                  host_pipeline_ms=pipe, loader_alone_ms_per_batch=loader_ms,
+                  last_losses=record["losses"][-1][1])
+    return dict(result=result, launches=launches, model=model, ex0=ex0,
+                state=state, step=tr.make_train_step(model, opt, ishape),
+                path=dict(V=cap["max_voxels"], N=cap["max_points"]))
+
+
 def profile_call(fn, what, top=12, host_top=0):
     """fn() under torch.profiler: the share of its span in which a kernel
     ran on the card, and the kernels that took the most device time (with
@@ -2103,6 +2419,8 @@ def main():
     small_train_check()
     log("phase 3d: main path eval (published semkitti config)")
     runs["eval"] = run_eval_path()
+    log("phase 3e: main path train entry (published semkitti config, B=2)")
+    runs["train_entry"] = run_train_entry()
     log("phase 4: kernels against their plain versions")
     report = kernel_checks(runs)
     for row in report:
@@ -2114,18 +2432,19 @@ def main():
         "and each inference path's structures+rulebooks build")
     for name, r in runs.items():
         log(f"  {name}:")
-        if name == "train":
+        training = name in ("train", "train_entry")
+        if training:
             fn = lambda r=r: r["step"](r["state"], r["ex0"])  # noqa: E731
         else:
             def fn(r=r):
                 ret, bat = r["model"](r["ex0"])
                 r["model"].predict(ret, bat)
         share, per_name = profile_call(
-            fn, "train step" if name == "train" else "scan")
+            fn, "train step" if training else "scan")
         log("  its conv and dW kernels (device time, launches):")
         r["result"]["device_busy_share"] = share
         r["result"]["conv_kernels"] = conv_kernel_sums(per_name)
-        if name != "train":
+        if not training:
             log(f"  {name}, structures+rulebooks of one scan:")
             r["result"]["structures"] = profile_structures(name, r)
     log(json.dumps({"main_path": {n: r["result"] for n, r in runs.items()},

@@ -1,22 +1,54 @@
-"""Training API: train state, train step, eval step and checkpoints
-(PyTorch port of the step functions and save_checkpoint / load_checkpoint
-of lidarseg3d_tpu/apis/train.py; its epoch loop and hooks are not ported).
+"""Training API: train state, train step, eval step, checkpoints and the
+epoch loop with its hooks (PyTorch port of lidarseg3d_tpu/apis/train.py).
 
 A train step is forward in training mode -> losses -> backward ->
 global-norm clip / Adam / decoupled weight decay under the schedules
 (solver/optim.py) -> updated parameters and BN running statistics, all in
-place on the model the state holds.
+place on the model the state holds. ``train_segmentor`` runs the epochs:
+OneCycle over every step, a log line every ``log_interval`` steps, a
+checkpoint after each epoch, resume, validation and ``TrainerHook``
+events in the JAX package's order. TensorBoard logging and the profiler
+trace of the JAX loop are not ported yet.
 """
 
 import os
+import time
 from dataclasses import dataclass
 
 import torch
 from torch import nn
 
 from ..parallel import dist
-from ..solver.optim import AdamState
+from ..solver.optim import AdamState, build_one_cycle_optimizer
 from ..synthetic import example_to_device as _to_device
+
+
+class TrainerHook:
+    """Extension point of the training loop: each method may return a
+    new state (or None to keep it) and may raise ``StopTraining``. Built-in
+    behaviour (logging, checkpoints, validation) stays inline; hooks add
+    behaviour (EMA, custom evaluation, early stop)."""
+
+    def before_run(self, state, loop):  # loop: dict of loop constants
+        return state
+
+    def before_epoch(self, state, epoch):
+        return state
+
+    def after_iter(self, state, ldict, global_step):
+        return state
+
+    def after_epoch(self, state, epoch):
+        return state
+
+    def after_run(self, state):
+        return state
+
+
+class StopTraining(Exception):
+    """Raise from a hook to end training cleanly: from ``after_iter`` the
+    epoch ends at once (its checkpoint, validation and ``after_epoch``
+    still run), from ``before_epoch`` training ends before that epoch."""
 
 DEVICE_BATCH_KEYS = (
     "voxels", "coordinates", "num_points", "num_voxels", "points",
@@ -160,3 +192,107 @@ def load_checkpoint(work_dir, state, epoch=None, partial=False):
         if ckpt["generator"] is not None and state.generator is not None:
             state.generator.set_state(ckpt["generator"])
     return state, int(name.split("_")[1])
+
+
+def _fire(hooks, event, state, *args):
+    """Call ``event`` on every hook, each even after one raised
+    StopTraining; -> (state, whether one did)."""
+    stop = False
+    for h in hooks:
+        try:
+            state = getattr(h, event)(state, *args) or state
+        except StopTraining:
+            stop = True
+    return state, stop
+
+
+def train_segmentor(model, loader, input_shape, optimizer_cfg, lr_cfg,
+                    total_epochs, work_dir, logger, grad_clip=35.0,
+                    log_interval=5, resume_from=None, seed=0, val_fn=None,
+                    init_hook=None, hooks=(), timings=None):
+    """The epoch loop (the JAX package's train_segmentor). The model
+    already holds its parameters (build_detector), so the loop starts from
+    ``create_train_state`` (the dropout generator seeded with ``seed``),
+    then ``init_hook(state)``; ``resume_from`` -1 (or True) restores the
+    checkpoint ``latest.txt`` names, N restores ``epoch_N``, and the
+    global step and the schedule continue from there. After each epoch
+    the state is saved as ``work_dir/epoch_{e}``, then ``val_fn(state,
+    e)`` runs. ``timings``, a list, receives for each step the seconds the
+    loop waited for its batch (taken from the loader and copied to the
+    device) and the seconds of the step itself, measured to a device
+    synchronisation. Returns the state."""
+    os.makedirs(work_dir, exist_ok=True)
+    steps_per_epoch = loader.steps_per_epoch()
+    total_steps = steps_per_epoch * total_epochs
+    optimizer, lr_fn = build_one_cycle_optimizer(
+        optimizer_cfg, lr_cfg, total_steps, grad_clip=grad_clip)
+    device = next(model.parameters()).device
+    state = create_train_state(model, optimizer, seed=seed)
+    if init_hook is not None:
+        state = init_hook(state)
+    n_params = sum(p.numel() for p in model.parameters())
+    logger.info(f"model params: {n_params / 1e6:.2f} M; steps/epoch: "
+                f"{steps_per_epoch}; total steps: {total_steps}")
+
+    start_epoch = 0
+    if resume_from is not None:
+        epoch_sel = None if resume_from in (-1, True) else resume_from
+        state, start_epoch = load_checkpoint(work_dir, state, epoch_sel)
+        logger.info(f"resumed from epoch {start_epoch}")
+    train_step = make_train_step(model, optimizer, input_shape)
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else lambda *a: None)
+
+    loop = dict(total_epochs=total_epochs, steps_per_epoch=steps_per_epoch,
+                work_dir=work_dir, lr_fn=lr_fn)
+    for h in hooks:
+        state = h.before_run(state, loop) or state
+    t_start = time.time()
+    global_step = start_epoch * steps_per_epoch
+    for epoch in range(start_epoch, total_epochs):
+        state, stop = _fire(hooks, "before_epoch", state, epoch)
+        if stop:
+            break
+        buf, t_data, t_iter = {}, 0.0, time.time()
+        t_ready = time.perf_counter()  # from here the loop waits for data
+        for it, batch in enumerate(loader.epoch(epoch)):
+            dev_batch = example_to_device(batch, device)
+            t0 = time.perf_counter()
+            t_data += t0 - t_ready
+            state, ldict = train_step(state, dev_batch)
+            if timings is not None:
+                sync(device)
+                timings.append(dict(data_s=t0 - t_ready,
+                                    step_s=time.perf_counter() - t0))
+            state, stop = _fire(hooks, "after_iter", state, ldict,
+                                global_step)
+            global_step += 1
+            if stop:
+                break
+            for k, v in ldict.items():
+                buf.setdefault(k, []).append(v)
+            if (it + 1) % log_interval == 0:
+                vals = {k: float(torch.stack(v).float().mean())
+                        for k, v in buf.items()}
+                lr = float(lr_fn(global_step))
+                elapsed = time.time() - t_start
+                done = global_step - start_epoch * steps_per_epoch
+                eta = elapsed / max(done, 1) * (total_steps - global_step)
+                msg = ", ".join(f"{k}: {v:.4f}" for k, v in vals.items())
+                logger.info(
+                    f"Epoch [{epoch + 1}/{total_epochs}][{it + 1}/"
+                    f"{steps_per_epoch}] lr: {lr:.5f}, eta: "
+                    f"{eta / 60:.1f}min, data: {t_data:.2f}s, iter: "
+                    f"{time.time() - t_iter:.2f}s, {msg}")
+                buf, t_data, t_iter = {}, 0.0, time.time()
+            t_ready = time.perf_counter()
+        save_checkpoint(work_dir, state, epoch + 1)
+        logger.info(f"saved checkpoint epoch_{epoch + 1}")
+        if val_fn is not None:
+            val_fn(state, epoch + 1)
+        state, stop_after = _fire(hooks, "after_epoch", state, epoch + 1)
+        if stop or stop_after:
+            break
+    for h in hooks:
+        state = h.after_run(state) or state
+    return state

@@ -80,6 +80,24 @@ def encode_compact_value_labels(voxel_labels, ignore_id=0):
     return (enc - 1).astype(voxel_labels.dtype)
 
 
+def encode_major_value_labels(voxel_labels, ignore_id=0):
+    """Voxel label = the most frequent (+1-shifted) label of its points,
+    the smallest label among ties, else ignore (as np.unique + argmax
+    pick). voxel_labels: [Nv, P] int array, 0 = padding slot."""
+    voxel_labels = np.asarray(voxel_labels)
+    pos = voxel_labels > 0
+    # counts[i, j] = multiplicity of voxel_labels[i, j] among valid slots
+    eq = voxel_labels[:, :, None] == voxel_labels[:, None, :]
+    counts = (eq & pos[:, None, :]).sum(axis=2)
+    # score favours a high count, then a small label; padding excluded
+    score = counts.astype(np.float64) * 1e9 - voxel_labels
+    score[~pos] = -np.inf
+    best = np.argmax(score, axis=1)
+    enc = voxel_labels[np.arange(len(voxel_labels)), best]
+    enc = np.where(pos.any(axis=1), enc, ignore_id + 1)
+    return (enc - 1).astype(voxel_labels.dtype)
+
+
 class VoxelGenerator:
     """API of the JAX package's VoxelGenerator, key-sorted output."""
 

@@ -53,8 +53,9 @@ def collate_segnet(frames, max_voxels, max_points, ignore_label=0,
                    on_overflow="warn"):
     """frames: per-frame dicts with voxels [v,P,D], coordinates [v,3] zyx,
     num_points_per_voxel [v], points [n,D], optionally images /
-    points_cuv / voxel_sem_labels / point_sem_labels. Returns stacked numpy
-    arrays (B leading), padded to the capacities."""
+    points_cuv / images_sem_labels / voxel_sem_labels / point_sem_labels.
+    Returns stacked numpy arrays (B leading; images_sem_labels
+    [B * ncam, H, W]), padded to the capacities."""
     _check_overflow(frames, max_voxels, max_points, on_overflow)
     batch = {}
     batch["voxels"] = _pad_stack([fr["voxels"] for fr in frames],
@@ -78,6 +79,10 @@ def collate_segnet(frames, max_voxels, max_points, ignore_label=0,
         batch["points_cuv"] = _pad_stack(
             [np.asarray(fr["points_cuv"], np.float32) for fr in frames],
             max_points, np.float32)
+        if "images_sem_labels" in frames[0]:
+            batch["images_sem_labels"] = np.concatenate(
+                [np.asarray(fr["images_sem_labels"], np.int32)
+                 for fr in frames], axis=0)  # [B * ncam, H, W]
     if "voxel_sem_labels" in frames[0]:
         batch["voxel_sem_labels"] = _pad_stack(
             [np.asarray(fr["voxel_sem_labels"], np.int32) for fr in frames],

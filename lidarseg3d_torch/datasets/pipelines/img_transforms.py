@@ -1,6 +1,6 @@
-"""Image transforms of the evaluation pipeline (own copy of the val-path
-functions of lidarseg3d_tpu/datasets/pipelines/img_transforms.py), without
-cv2.
+"""Image transforms co-applied to the points' pixel coordinates and the
+pixel labels (own copy of lidarseg3d_tpu/datasets/pipelines/
+img_transforms.py), without cv2.
 
 ``resize_image_points_label`` resizes as ``cv2.resize`` does, bit for bit:
 bilinear on uint8 (INTER_LINEAR) in cv2's fixed point, and nearest
@@ -9,12 +9,20 @@ source columns with 11-bit integer coefficients (1 - f and f, each times
 2048 and rounded half to even, f from ``(dx + 0.5) * scale - 0.5`` in
 float32, clamped to the edge columns), then two of those rows with 11-bit
 coefficients, ``((b0 * (r0 >> 4)) >> 16) + ((b1 * (r1 >> 4)) >> 16) + 2 >>
-2``; ``scale`` is ``1 / (dsize / ssize)`` in double. The train
-augmentations (flip, colour jitter, JPEG compression, rescale, crop) are
-not ported yet.
+2``; ``scale`` is ``1 / (dsize / ssize)`` in double.
+
+The train augmentations (horizontal flip, colour jitter, JPEG
+compression, rescale, crop) draw from the ``rng`` they are given in the
+JAX package's order and number, a branch that does not fire included.
+The colour jitter's HSV conversions are colorspace.py's, the JPEG round
+trip jpeg.py's, both cv2's arithmetic in numpy. points_cp rows are
+[cam_id, w_coord, h_coord].
 """
 
 import numpy as np
+
+from .colorspace import bgr_to_hsv, hsv_to_bgr
+from .jpeg import jpeg_round_trip
 
 _COEF_SCALE = 2048  # cv2's INTER_RESIZE_COEF_SCALE (11 bits)
 
@@ -76,6 +84,79 @@ def resize_image_points_label(image, points_cp, image_label, resized_shape):
     if image_label is not None:
         image_label = resize_nearest(image_label, W1, H1)
     return img, points_cp, image_label
+
+
+def random_horizontal_flip(image, points_cp_w, image_label, rng,
+                           probability=0.5):
+    """Flips the width axis; points_cp_w are the w coords of this cam."""
+    if rng.random() < probability:
+        W = image.shape[1]
+        image = image[:, ::-1].copy()
+        points_cp_w = W - 1 - points_cp_w
+        if image_label is not None:
+            image_label = image_label[:, ::-1].copy()
+    return image, points_cp_w, image_label
+
+
+def color_jitter(image, rng, brightness=0.3, contrast=0.3, saturation=0.3,
+                 hue=0.1):
+    """torchvision-style ColorJitter on a BGR uint8 image."""
+    img = image.astype(np.float32)
+    if brightness:
+        img *= rng.uniform(max(0, 1 - brightness), 1 + brightness)
+    if contrast:
+        f = rng.uniform(max(0, 1 - contrast), 1 + contrast)
+        # torchvision uses the grayscale mean
+        gray = (0.114 * img[..., 0] + 0.587 * img[..., 1]
+                + 0.299 * img[..., 2]).mean()
+        img = f * img + (1 - f) * gray
+    img = np.clip(img, 0, 255).astype(np.uint8)
+    if saturation or hue:
+        hsv = bgr_to_hsv(img).astype(np.float32)
+        if saturation:
+            hsv[..., 1] *= rng.uniform(max(0, 1 - saturation),
+                                       1 + saturation)
+        if hue:
+            hsv[..., 0] = (hsv[..., 0] + rng.uniform(-hue, hue) * 180) % 180
+        hsv[..., 1:] = np.clip(hsv[..., 1:], 0, 255)
+        img = hsv_to_bgr(hsv.astype(np.uint8))
+    return img
+
+
+def jpeg_compression(image, rng, quality_noise=(30, 70), probability=0.5):
+    if rng.random() < probability:
+        q = int(rng.uniform(quality_noise[0], quality_noise[1]))
+        image = jpeg_round_trip(image, q)
+    return image
+
+
+def random_rescale(image, points_cp, image_label, rng, scale_noise=(1.0, 1.5),
+                   probability=0.5):
+    if rng.random() < probability:
+        s = rng.uniform(scale_noise[0], scale_noise[1])
+        H0, W0 = image.shape[:2]
+        image, points_cp, image_label = resize_image_points_label(
+            image, points_cp, image_label, (int(W0 * s), int(H0 * s)))
+    return image, points_cp, image_label
+
+
+def random_crop(image, points_cp, image_label, rng, crop_shape=(320, 1024)):
+    """crop_shape: (H, W). Points falling outside get cam_id = -1."""
+    H0, W0 = image.shape[:2]
+    ch, cw = min(crop_shape[0], H0), min(crop_shape[1], W0)
+    y0 = rng.integers(0, H0 - ch + 1)
+    x0 = rng.integers(0, W0 - cw + 1)
+    image = image[y0:y0 + ch, x0:x0 + cw]
+    if image_label is not None:
+        image_label = image_label[y0:y0 + ch, x0:x0 + cw]
+    if points_cp is not None and len(points_cp):
+        points_cp = points_cp.copy()
+        points_cp[:, 1] -= x0
+        points_cp[:, 2] -= y0
+        inside = ((points_cp[:, 1] >= 0) & (points_cp[:, 1] <= cw - 1)
+                  & (points_cp[:, 2] >= 0) & (points_cp[:, 2] <= ch - 1))
+        points_cp[~inside, 0] = -1
+    return image, points_cp, image_label
 
 
 def normalize_image(image, mean, std):

@@ -3,9 +3,12 @@ of lidarseg3d_tpu/datasets/pipelines/loading.py without cv2).
 
 KITTI .bin scans are float32 [x, y, z, intensity] rows; each point gets its
 camera projection through P2 @ Tr of the sequence's calib.txt. Images are
-read by png.read_png_bgr, which gives what cv2.imread gives. The nuScenes
-and Waymo branches, and the annotation stages of the training pipeline,
-are not ported yet and raise.
+read by png.read_png_bgr, which gives what cv2.imread gives. The labels
+file of a scan holds uint32 words: the semantic id in the low 16 bits
+(mapped through the learning map), the instance id above. The image label
+maps are drawn as cv2.circle draws a filled circle (``circle_offsets``,
+``splat_circles``). The nuScenes and Waymo branches are not ported yet
+and raise (ROADMAP A6).
 """
 
 import numpy as np
@@ -38,7 +41,48 @@ def select_points_in_frustum(pts_2d, x1, y1, x2, y2):
 def _not_ported(kind):
     return NotImplementedError(
         f"{kind} is not ported to lidarseg3d_torch yet (only "
-        "SemanticKITTIDataset is)")
+        "SemanticKITTIDataset is; ROADMAP A6)")
+
+
+def circle_offsets(radius):
+    """(dy, dx) int64 [K, 2] of the pixels a filled ``cv2.circle`` of
+    ``radius`` (8-connected, no sub-pixel shift) sets around its centre:
+    cv2's midpoint walk, filling the rows +-dy with [-dx, dx] and the rows
+    +-dx with [-dy, dy] at each step."""
+    half = {}
+    err, dx, dy, plus, minus = 0, radius, 0, 1, 2 * radius - 1
+    while dx >= dy:
+        for row, w in ((dy, dx), (-dy, dx), (dx, dy), (-dx, dy)):
+            half[row] = max(half.get(row, -1), w)
+        dy += 1
+        err += plus
+        plus += 2
+        mask = (err <= 0) - 1
+        err -= minus & mask
+        dx += mask
+        minus -= mask & 2
+    return np.array([(r, c) for r, w in sorted(half.items())
+                     for c in range(-w, w + 1)], np.int64)
+
+
+def splat_circles(shape, xs, ys, labels, radius):
+    """uint8 [H, W] map with a filled circle of ``radius`` and value
+    labels[i] at (int(xs[i]), int(ys[i])) for each point whose label is
+    above 0, drawn in order (a later circle overwrites an earlier one)
+    and clipped at the border, as cv2.circle draws them one by one."""
+    H, W = shape
+    out = np.zeros(H * W, np.uint8)
+    keep = np.flatnonzero(labels > 0)
+    off = circle_offsets(radius)
+    py = ys[keep].astype(np.int64)[:, None] + off[None, :, 0]
+    px = xs[keep].astype(np.int64)[:, None] + off[None, :, 1]
+    inside = (py >= 0) & (py < H) & (px >= 0) & (px < W)
+    pix = (py * W + px)[inside]
+    lab = np.broadcast_to(labels[keep][:, None], py.shape)[inside]
+    # the last point to cover a pixel is the first in reversed order
+    pix, first = np.unique(pix[::-1], return_index=True)
+    out[pix] = lab[::-1][first]
+    return out.reshape(H, W)
 
 
 @PIPELINES.register_module
@@ -95,4 +139,50 @@ class LoadImageFromFile:
         cam_paths = {"1": img_path}
         sample["images"] = [read_png_bgr(cam_paths[c])
                             for c in info["cam"]["names"]]
+        return sample, info
+
+
+@PIPELINES.register_module
+class LoadPointCloudAnnotations:
+    """Per-point semantic and instance labels of a SemanticKITTI scan."""
+
+    def __init__(self, with_bbox=False, **kwargs):
+        self.with_bbox = with_bbox
+
+    def __call__(self, sample, info):
+        if sample["type"] != "SemanticKITTIDataset":
+            raise _not_ported(sample["type"])
+        label_path = (info["path"].replace("velodyne", "labels")
+                      .replace(".bin", ".label"))
+        raw = np.fromfile(label_path, dtype=np.uint32).reshape(-1)
+        sem = (raw & 0xFFFF).astype(np.int64)
+        inst = (raw >> 16).astype(np.int64)
+        sample["annotations"] = {
+            "point_sem_labels": info["remap_lut"][sem].astype(np.int32),
+            "point_inst_labels": inst.astype(np.int32)}
+        return sample, info
+
+
+@PIPELINES.register_module
+class LoadImageAnnotations:
+    """Sparse pixel labels of each camera: every projected point with a
+    label above 0 splats its label as a filled circle of
+    ``points_cp_radius`` into a uint8 map of the camera's image size."""
+
+    def __init__(self, points_cp_radius=1, use_img=True, **kwargs):
+        self.points_cp_radius = points_cp_radius
+        self.use_img = use_img
+
+    def __call__(self, sample, info):
+        if not self.use_img:
+            return sample, info
+        points_cp = sample["points_cp"]
+        labels = sample["annotations"]["point_sem_labels"]
+        maps = []
+        for cam_id, img in zip(info["cam"]["names"], sample["images"]):
+            sel = points_cp[:, 0] == int(cam_id)
+            maps.append(splat_circles(
+                img.shape[:2], points_cp[sel, 1], points_cp[sel, 2],
+                labels[sel], self.points_cp_radius))
+        sample["image_sem_labels"] = maps
         return sample, info

@@ -1,22 +1,21 @@
-"""Segmentation preprocessing stages of the evaluation pipeline (own copy of
-the val paths of lidarseg3d_tpu/datasets/pipelines/seg_preprocess.py):
-SegPreprocess, SegVoxelization on core/voxelize.py, SegImagePreprocess
-(resize, normalize, points_cuv) and Reformat. The training branches
-(point and image augmentations, SegAssignLabel) and the TTA variants
-(SegCompoundAug) are not ported yet and raise.
+"""Segmentation preprocessing stages (own copy of
+lidarseg3d_tpu/datasets/pipelines/seg_preprocess.py without the TTA
+variants): SegPreprocess (the train-time point augmentations, the shuffle
+of points and labels, ``points_with_labels`` and the ``npoints`` cap),
+SegVoxelization on core/voxelize.py, SegAssignLabel (one label per voxel),
+SegImagePreprocess (resize, the train-time image augmentations, normalize,
+points_cuv) and Reformat. Every draw comes from the sample's ``rng`` in
+the JAX package's order. The TTA variants (SegCompoundAug) are not ported
+yet and raise.
 """
 
 import numpy as np
 
-from ...core.voxelize import VoxelGenerator
+from ...core import augment as aug
+from ...core.voxelize import (VoxelGenerator, encode_compact_value_labels,
+                              encode_major_value_labels)
 from ..registry import PIPELINES
 from . import img_transforms as T
-
-
-def _train_not_ported(stage):
-    return NotImplementedError(
-        f"{stage}: the training branch (augmentations) is not ported to "
-        "lidarseg3d_torch yet")
 
 
 @PIPELINES.register_module
@@ -25,22 +24,50 @@ class SegPreprocess:
         self.mode = cfg["mode"]
         self.shuffle_points = cfg["shuffle_points"]
         self.npoints = cfg.get("npoints", -1)
+        self.no_augmentation = cfg.get("no_augmentation", False)
         if self.mode == "train":
-            raise _train_not_ported("SegPreprocess")
+            self.global_rotation_noise = cfg["global_rot_noise"]
+            self.global_scaling_noise = cfg["global_scale_noise"]
+            self.global_translate_std = cfg.get("global_translate_std", 0)
 
     def __call__(self, sample, info):
         sample["mode"] = self.mode
+        train = self.mode == "train"
         rng = sample.get("rng") or np.random.default_rng()
         points = sample["points"]
+        if train:
+            sem = sample["annotations"]["point_sem_labels"]
+            inst = sample["annotations"]["point_inst_labels"]
+            if not self.no_augmentation:
+                points = aug.points_random_flip(points, rng=rng)
+                points = aug.points_global_rotation(
+                    points, rotation=self.global_rotation_noise, rng=rng)
+                points = aug.points_global_scaling(
+                    points, *self.global_scaling_noise, rng=rng)
+                points = aug.points_global_translate(
+                    points, self.global_translate_std, rng=rng)
         if self.shuffle_points:
             idx = rng.permutation(points.shape[0])
             points = points[idx]
+            if train:
+                sem, inst = sem[idx], inst[idx]
         else:
             idx = np.arange(points.shape[0])
+        if train:
+            # +1 marks the padding slots (0) in the voxel label vote
+            sample["points_with_labels"] = np.concatenate(
+                [points, sem[:, None].astype(np.float32) + 1.0], axis=-1)
         sample["all_points"] = points
         if self.npoints > 0 and points.shape[0] > self.npoints:
             points = points[: self.npoints]
             idx = idx[: self.npoints]
+            if train:
+                sample["points_with_labels"] = sample["points_with_labels"][
+                    : self.npoints]
+                sem, inst = sem[: self.npoints], inst[: self.npoints]
+        if train:
+            sample["annotations"] = {"point_sem_labels": sem,
+                                     "point_inst_labels": inst}
         sample["points"] = points
         sample["points_shuffle_idx"] = idx
         return sample, info
@@ -66,16 +93,42 @@ class SegVoxelization:
             max_voxels=self.max_voxel_num[0])
 
     def __call__(self, sample, info):
-        if sample["mode"] == "train":
-            raise _train_not_ported("SegVoxelization")
+        train = sample["mode"] == "train"
         voxels, coordinates, num_points = self.voxel_generator.generate(
-            sample["points"], max_voxels=self.max_voxel_num[1])
+            sample["points_with_labels"] if train else sample["points"],
+            max_voxels=self.max_voxel_num[0 if train else 1])
         sample["voxels"] = dict(
             voxels=voxels, coordinates=coordinates, num_points=num_points,
             num_voxels=np.array([voxels.shape[0]], dtype=np.int64),
             shape=self.voxel_generator.grid_size,
             range=np.asarray(self.range, np.float32),
             size=np.asarray(self.voxel_size, np.float32))
+        return sample, info
+
+
+@PIPELINES.register_module
+class SegAssignLabel:
+    """One label per voxel from its points' (+1-shifted) labels, the
+    voxels' last feature column, which is dropped here."""
+
+    def __init__(self, cfg=None, **kwargs):
+        self.voxel_label_enc = cfg["voxel_label_enc"]
+        if self.voxel_label_enc not in ("compact_value", "major_value"):
+            raise NotImplementedError(self.voxel_label_enc)
+
+    def __call__(self, sample, info):
+        if sample["mode"] != "train":
+            return sample, info
+        dim_feat = info["dim"]["points"]
+        vox = sample["voxels"]["voxels"]
+        labels = vox[..., dim_feat].astype(np.int64)
+        sample["voxels"]["voxels"] = vox[..., :dim_feat]
+        encode = (encode_compact_value_labels
+                  if self.voxel_label_enc == "compact_value"
+                  else encode_major_value_labels)
+        sample["targets"] = {
+            "voxel_sem_labels": encode(labels).astype(np.int32),
+            "point_sem_labels": sample["annotations"]["point_sem_labels"]}
         return sample, info
 
 
@@ -99,38 +152,78 @@ class Reformat:
             frame["voxels"] = vox["voxels"].astype(np.float32)
             frame["coordinates"] = vox["coordinates"]
             frame["num_points_per_voxel"] = vox["num_points"]
+        if sample["mode"] == "train" and "targets" in sample:
+            frame["voxel_sem_labels"] = sample["targets"]["voxel_sem_labels"]
+            frame["point_sem_labels"] = sample["targets"]["point_sem_labels"]
+        elif sample["mode"] == "train" and "annotations" in sample:
+            # no host voxelization: point labels only
+            frame["point_sem_labels"] = sample["annotations"][
+                "point_sem_labels"]
         if "points_cuv" in sample:
             frame["points_cuv"] = sample["points_cuv"].astype(np.float32)
             frame["images"] = sample["images"].astype(np.float32)
+            if "images_sem_labels" in sample:
+                frame["images_sem_labels"] = sample["images_sem_labels"]
         return frame, info
 
 
 @PIPELINES.register_module
 class SegImagePreprocess:
-    """Camera images of the evaluation pipeline: each camera resized to the
-    common shape (its points' pixel coordinates with it), normalized per
-    camera into one preallocated block, and the per-point
-    points_cuv = [valid, norm_cam, norm_v, norm_u] in [-1, 1]."""
+    """Camera images: each camera resized to the common shape (its points'
+    pixel coordinates and its label map with it), in training augmented
+    (horizontal flip, colour jitter, JPEG compression, rescale, crop; each
+    as configured), normalized per camera into one preallocated block, and
+    the per-point points_cuv = [valid, norm_cam, norm_v, norm_u] in
+    [-1, 1], in the shuffled point order."""
 
     def __init__(self, cfg=None, **kwargs):
         cfg = cfg or {}
         self.shuffle_points = cfg.get("shuffle_points", False)
+        self.random_horizon_flip = cfg.get("random_horizon_flip", False)
+        self.color_jitter_cfg = cfg.get("random_color_jitter_cfg", None)
+        self.jpeg_cfg = cfg.get("random_jpeg_compression_cfg", None)
+        self.rescale_cfg = cfg.get("random_rescale_cfg", None)
+        self.crop_cfg = cfg.get("random_crop_cfg", None)
         self.no_augmentation = cfg.get("no_augmentation", False)
 
+    def _augment(self, img, cp, lab, rng):
+        if self.random_horizon_flip:
+            img, cp[:, 1], lab = T.random_horizontal_flip(img, cp[:, 1], lab,
+                                                          rng)
+        if self.color_jitter_cfg is not None:
+            img = T.color_jitter(img, rng, **self.color_jitter_cfg)
+        if self.jpeg_cfg is not None:
+            img = T.jpeg_compression(img, rng, **self.jpeg_cfg)
+        if self.rescale_cfg is not None:
+            img, cp, lab = T.random_rescale(img, cp, lab, rng,
+                                            **self.rescale_cfg)
+        if self.crop_cfg is not None:
+            img, cp, lab = T.random_crop(img, cp, lab, rng, **self.crop_cfg)
+        return img, cp, lab
+
     def __call__(self, sample, info):
-        if sample["mode"] == "train" and not self.no_augmentation:
-            raise _train_not_ported("SegImagePreprocess")
+        augment = sample["mode"] == "train" and not self.no_augmentation
+        rng = sample.get("rng") or np.random.default_rng()
         cam_names = info["cam"]["names"]
         cam_attributes = info["cam"]["attributes"]
         resized_shape = info["cam"]["resized_shape"]  # (W, H)
         points_cp = sample["points_cp"].copy()
-        out_images = []
-        for cam_id, img in zip(cam_names, sample["images"]):
+        labels = sample.get("image_sem_labels")
+        out_images, out_labels = [], []
+        for ci, (cam_id, img) in enumerate(zip(cam_names, sample["images"])):
             sel = points_cp[:, 0] == int(cam_id)
-            img, cp, _ = T.resize_image_points_label(
-                img, points_cp[sel], None, resized_shape)
+            lab = labels[ci] if labels is not None else None
+            img, cp, lab = T.resize_image_points_label(
+                img, points_cp[sel], lab, resized_shape)
+            if augment:
+                img, cp, lab = self._augment(img, cp, lab, rng)
             points_cp[sel] = cp
             out_images.append(img)
+            if lab is not None:
+                out_labels.append(lab)
+        shapes = {im.shape[:2] for im in out_images}
+        if len(shapes) != 1:
+            raise ValueError(f"inconsistent camera shapes: {shapes}")
         H, W = out_images[0].shape[:2]
         images_out = np.empty((len(out_images), H, W, 3), np.float32)
         for ci, (cam_id, img) in enumerate(zip(cam_names, out_images)):
@@ -154,4 +247,7 @@ class SegImagePreprocess:
         sample["points_cp"] = points_cp
         sample["points_cuv"] = cuv
         sample["images"] = images_out  # [ncam, H, W, 3] fp32
+        if out_labels:
+            sample["images_sem_labels"] = np.stack(out_labels, axis=0).astype(
+                np.int32)
         return sample, info

@@ -12,7 +12,8 @@ the 0.1 m nuScenes grid (Z, Y, X) = (41, 1024, 1024), six cameras at
 640x960, V=N=40960, 17 classes, and the image branch in bf16.
 
 ``write_semantickitti_tree`` writes a seeded dataset on disk in
-SemanticKITTI's layout, for the evaluation entry point.
+SemanticKITTI's layout, and ``write_eval_config`` a config whose splits
+read it, for the evaluation and training entry points.
 """
 
 import os

@@ -1,0 +1,205 @@
+"""Train a segmentor with the port (the port's counterpart of
+tools/train.py).
+
+    python -m lidarseg3d_torch.tools.train CONFIG [--work_dir D]
+        [--resume_from [N]] [--seed N] [--total_epochs N] [--batch_size N]
+        [--max_steps_per_epoch N] [--validate] [--autoscale-lr]
+        [--device cuda|cpu]
+
+The model is built from the config (seeded with ``--seed``), the config's
+train split runs through the port's dataset, train pipeline and loader
+(thread workers unless the config names another mode; ``shm`` is not
+ported and raises) into ``apis.train.train_segmentor``: OneCycle over
+every step, the config's gradient clip, a log line every
+``log_config.interval`` steps (also written to ``WORK_DIR/train.log``), a
+checkpoint ``WORK_DIR/epoch_N`` after each epoch and ``latest.txt``.
+``--resume_from`` alone resumes from ``latest.txt``, ``--resume_from N``
+from ``epoch_N``. ``--validate`` evaluates the val split after each epoch
+and logs its mIoU. ``--autoscale-lr`` scales ``lr_max`` by the devices
+used / 8 (one here). The device is ``cuda`` unless ``--device cpu`` is
+given, and the tool raises when there is no card.
+
+A ``pretrained`` image backbone that does not exist is skipped with a
+warning, as the JAX package does; one that exists raises, because the
+HRNet checkpoint import is not ported yet (ROADMAP A6). ``--tb_log_dir``,
+``--profile_dir`` (ROADMAP A5) and the ``--dist_*`` flags (multi-process
+training, ROADMAP A7) raise.
+"""
+
+import argparse
+import copy
+import logging
+import os
+import sys
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Train a segmentor")
+    p.add_argument("config", help="config file path")
+    p.add_argument("--work_dir", default=None)
+    p.add_argument("--resume_from", default=None, type=int, nargs="?",
+                   const=-1)
+    p.add_argument("--seed", default=None, type=int)
+    p.add_argument("--total_epochs", default=None, type=int)
+    p.add_argument("--batch_size", default=None, type=int)
+    p.add_argument("--max_steps_per_epoch", default=None, type=int,
+                   help="truncate each epoch to its first N batches")
+    p.add_argument("--validate", action="store_true",
+                   help="evaluate the val split after each epoch")
+    p.add_argument("--autoscale-lr", action="store_true",
+                   help="scale lr_max by the devices used / 8")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--tb_log_dir", default=None)
+    p.add_argument("--profile_dir", default=None)
+    p.add_argument("--dist_coordinator", default=None)
+    p.add_argument("--dist_num_processes", default=None, type=int)
+    p.add_argument("--dist_process_id", default=None, type=int)
+    return p.parse_args(argv)
+
+
+def _refuse_unported(args):
+    if args.tb_log_dir:
+        raise NotImplementedError("--tb_log_dir: TensorBoard logging is not "
+                                  "ported to lidarseg3d_torch yet (ROADMAP "
+                                  "A5)")
+    if args.profile_dir:
+        raise NotImplementedError("--profile_dir: the profiler trace is not "
+                                  "ported to lidarseg3d_torch yet (ROADMAP "
+                                  "A5)")
+    if (args.dist_coordinator is not None or args.dist_num_processes
+            is not None or args.dist_process_id is not None):
+        raise NotImplementedError("--dist_*: multi-process training is not "
+                                  "ported to lidarseg3d_torch yet (ROADMAP "
+                                  "A7)")
+
+
+def _logger(log_file):
+    """The tool's logger, to stdout and ``log_file``; returns it and the
+    file handler to close."""
+    logger = logging.getLogger("lidarseg3d_torch.tools.train")
+    for h in list(logger.handlers):
+        logger.removeHandler(h)
+        h.close()
+    fmt = logging.Formatter("%(message)s")
+    stream = logging.StreamHandler(sys.stdout)
+    stream.setFormatter(fmt)
+    to_file = logging.FileHandler(log_file)
+    to_file.setFormatter(fmt)
+    logger.addHandler(stream)
+    logger.addHandler(to_file)
+    logger.setLevel(logging.INFO)
+    logger.propagate = False
+    return logger, to_file
+
+
+class _FirstBatches:
+    """A sampler's first ``n`` batches of every epoch
+    (``--max_steps_per_epoch``)."""
+
+    def __init__(self, sampler, n):
+        self.sampler, self.n = sampler, n
+
+    def epoch_indices(self, epoch):
+        return self.sampler.epoch_indices(epoch)[: self.n]
+
+    def steps_per_epoch(self):
+        return min(self.sampler.steps_per_epoch(), self.n)
+
+
+def main(argv=None, hooks=(), timings=None):
+    """Run the training; ``hooks`` (TrainerHook instances) and
+    ``timings`` (a list for each step's data wait and step seconds) go to
+    ``train_segmentor``. Returns {"state": the final train state,
+    "work_dir"}."""
+    args = parse_args(argv)
+    _refuse_unported(args)
+    from ..apis.eval import evaluate_dataset, run_eval
+    from ..apis.train import train_segmentor
+    from ..datasets import SegDataLoader, build_dataset
+    from ..models import build_detector
+    from ..utils.config import Config
+    from ..utils.device import resolve_device
+    from .test import input_shape_of
+
+    device = resolve_device(args.device)
+    cfg = Config.fromfile(args.config)
+    work_dir = args.work_dir or cfg.get("work_dir", "./work_dirs/default")
+    os.makedirs(work_dir, exist_ok=True)
+    logger, log_file = _logger(os.path.join(work_dir, "train.log"))
+    try:
+        logger.info(f"device: {device}; config: {args.config}")
+        seed = args.seed or 0
+        img_bb = cfg.model.get("img_backbone") or {}
+        pretrained = img_bb.get("pretrained") if img_bb else None
+        if pretrained and os.path.isfile(pretrained):
+            raise NotImplementedError(
+                f"pretrained {pretrained}: the HRNet checkpoint import is "
+                "not ported to lidarseg3d_torch yet (ROADMAP A6)")
+        if pretrained:
+            logger.warning(f"pretrained HRNet not found: {pretrained}")
+
+        model_cfg = copy.deepcopy(cfg.model.to_dict())
+        for key in ("train_cfg", "test_cfg"):
+            model_cfg.setdefault(key, dict(cfg.get(key) or {}))
+        model = build_detector(model_cfg, device=device, seed=seed)
+        dataset = build_dataset(cfg.data["train"].to_dict())
+        logger.info(f"dataset: {len(dataset)} frames")
+        cap = cfg.get("capacity", {})
+        batch_size = args.batch_size or cfg.data["samples_per_gpu"]
+        loader = SegDataLoader(
+            dataset, batch_size=batch_size,
+            max_voxels=cap.get("max_voxels", 160000),
+            max_points=cap.get("max_points", 140000), shuffle=True,
+            seed=seed, num_workers=cfg.data.get("workers_per_gpu", 4),
+            worker_mode=cfg.data.get("worker_mode", "thread"),
+            ignore_label=cfg.get("ignore_label", 0),
+            # a capacity overflow drops rows and changes the gradients
+            on_overflow=cfg.get("on_overflow", "error"))
+        if args.max_steps_per_epoch:
+            loader.sampler = _FirstBatches(loader.sampler,
+                                           args.max_steps_per_epoch)
+        input_shape = input_shape_of(cfg)
+        lr_cfg = dict(cfg.lr_config)
+        if args.autoscale_lr:
+            scale = 1 / 8.0  # one process on one device
+            lr_cfg["lr_max"] = lr_cfg["lr_max"] * scale
+            logger.info(f"autoscale-lr: lr_max *= {scale:.3f} (1 device)")
+        grad_clip = cfg.optimizer_config.get("grad_clip", {}).get(
+            "max_norm", 35.0)
+
+        val_fn, val_loader = None, None
+        if args.validate:
+            val_dataset = build_dataset(cfg.data["val"].to_dict())
+            val_loader = SegDataLoader(
+                val_dataset, batch_size=batch_size,
+                max_voxels=cap.get("max_voxels", 160000),
+                max_points=cap.get("max_points", 140000), shuffle=False,
+                num_workers=1, drop_last=False)
+
+            def val_fn(state, epoch):
+                dets = run_eval(model, state, val_loader, input_shape,
+                                val_dataset, logger,
+                                test_cfg=dict(cfg.get("test_cfg") or {}))
+                evaluate_dataset(val_dataset, dets, logger=logger)
+
+        try:
+            state = train_segmentor(
+                model=model, loader=loader, input_shape=input_shape,
+                optimizer_cfg=dict(cfg.optimizer), lr_cfg=lr_cfg,
+                total_epochs=args.total_epochs or cfg.total_epochs,
+                work_dir=work_dir, logger=logger, grad_clip=grad_clip,
+                log_interval=cfg.get("log_config", {}).get("interval", 5),
+                resume_from=args.resume_from, seed=seed, val_fn=val_fn,
+                hooks=hooks, timings=timings)
+        finally:
+            loader.shutdown()
+            if val_loader is not None:
+                val_loader.shutdown()
+    finally:
+        logger.removeHandler(log_file)
+        log_file.close()
+    return {"state": state, "work_dir": work_dir}
+
+
+if __name__ == "__main__":
+    main()

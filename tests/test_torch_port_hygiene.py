@@ -1,5 +1,6 @@
 """Hygiene of the port: lidarseg3d_torch (its solver, apis, losses,
-datasets and tools included), chip_smoke.py and the profile_*.py
+datasets, the train pipeline's augmentations, colour-space and JPEG
+modules, and tools included), chip_smoke.py and the profile_*.py
 scripts import nothing of JAX, Flax, optax, the JAX package or
 __graft_entry__, and no image library (cv2, PIL, imageio: the card's
 machine has none); the entry points run on cuda unless told otherwise;
@@ -23,6 +24,9 @@ EVAL_MODULES = ("tools/test.py", "apis/eval.py", "core/seg_metrics.py",
                 "datasets/pipelines/img_transforms.py",
                 "datasets/pipelines/seg_preprocess.py",
                 "datasets/semantickitti/dataset.py", "parallel/dist.py")
+TRAIN_ENTRY_MODULES = ("tools/train.py", "core/augment.py",
+                       "core/voxelize.py", "datasets/pipelines/jpeg.py",
+                       "datasets/pipelines/colorspace.py")
 SCRIPTS = ("chip_smoke.py", "profile_build.py", "profile_convs.py",
            "profile_merge.py")
 
@@ -45,7 +49,8 @@ def test_port_imports_no_jax():
     assert len(files) > 20
     listed = {str(p.relative_to(ROOT / "lidarseg3d_torch"))
               for p in files[:-len(SCRIPTS)]}
-    wanted = set(TRAINING_MODULES) | set(EVAL_MODULES)
+    wanted = (set(TRAINING_MODULES) | set(EVAL_MODULES)
+              | set(TRAIN_ENTRY_MODULES))
     assert wanted <= listed, wanted - listed
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imports(p) if m.split(".")[0] in FORBIDDEN]
