@@ -6,8 +6,9 @@ their plain PyTorch versions.
 
 Phases (each fails loudly with a non-zero exit):
   1. print the card's name and power limit (nvidia-smi); no card -> exit 1;
-  2. build the five CUDA kernels from lidarseg3d_torch/csrc into
-     lidarseg3d_torch/build (one nvcc per source, in parallel);
+  2. build the five CUDA kernels and the JPEG entropy coder (host C) from
+     lidarseg3d_torch/csrc into lidarseg3d_torch/build (one compiler per
+     source, in parallel);
   3. semkitti: the SemanticKITTI MSeg3D inference forward (UNetSCN3D r=2,
      HRNet-w18 and the FCN head in fp32, fusion head; seeded random
      weights) on three distinct synthetic scans (V=131072, N=122880, one
@@ -72,8 +73,27 @@ Phases (each fails loudly with a non-zero exit):
      launches of every kernel (those of phase 3d's tables keys, keys,
      rank, rank, plus 35 dX convs and 36 dW), the table kinds; print the
      step times (host clock to a synchronisation) and their p50 after the
-     first, the loader's wait per step, the train pipeline's ms per frame
-     by stage on one thread and the peak memory;
+     first, the loader's wait per step (the tools' default loader: shm
+     workers on a host with more than two CPUs), the train pipeline's ms
+     per frame by stage on one thread, the loader alone in thread mode
+     and the peak memory;
+  3f. eval-nu: the published nuScenes MSeg3D config
+     (configs/semanticnusc/MSeg3D/semnusc_avgvfe_unetscn3d_hrnetw18_lr1en2_e12.py:
+     0.1 m grid 41x1024x1024, capacity 40960 / 40960, six cameras,
+     frozen_stages=3, with_cp, ACT_REMAT) at full width and depth as in
+     3d, on a seeded val scene of six key frames
+     (synthetic.write_semnusc_tree: 30,000-34,688 points, six 1600x900
+     JPEGs each; infos and the --dry-data check by tools.create_data),
+     through the entry point tools.test with the loader in shm mode; the
+     checks of 3d (launches per scan (keys, keys, rank, rank), labels,
+     spread, mIoU, the device histogram, frame 0 card vs CPU) but no mini
+     config; also one JPEG read and its Huffman part;
+  3g. train-nu: the same config trained as in 3e at its samples_per_gpu=3
+     with with_cp and ACT_REMAT (87 forward + dX convs a step: 16 forward
+     convs run again in the backward) and the loader in shm mode, on three
+     seeded train scenes of three key frames: 2 epochs of 2 steps and a
+     resume for a third; the checks and numbers of 3e, and the loader alone
+     in shm and in thread mode;
   4. hold each kernel against its plain version on the card at each main
      path's shapes, from a real scan of that path: the rulebook conv in
      fp32 and bf16 (stage-1 subm, stage-1->2 strided, stage-4 subm; and as
@@ -95,9 +115,12 @@ Phases (each fails loudly with a non-zero exit):
      stage-1 and stage-2 KeyTables, the pack and lookup on its stage-3
      RankTable; from a batch of the train entry path (phase 3e, B=2), the
      conv, dX and dW at its stage-1 shape and the merge on its stage-1 and
-     stage-2 KeyTables. The rulebook lookups: all 10 rulebooks of each
-     path's structures (semkitti, train at B=2, semnusc, eval, train
-     entry at B=2), each exactly
+     stage-2 KeyTables; from a scan of eval-nu and a batch of train-nu
+     (B=3), the merge on their stage-1 and stage-2 KeyTables, and at B=3
+     the conv, dX and dW at the stage-1 shape. The rulebook lookups: all
+     10 rulebooks of each path's structures (semkitti, train at B=2,
+     semnusc, eval, train entry at B=2, eval-nu, train-nu at B=3), each
+     exactly
      against its plain version and the path's own rulebook on both table
      kinds (the fused kernel on a RankTable; the front end, merge and
      decode on a KeyTable), timed on the path's own kind with the bytes
@@ -205,6 +228,26 @@ TRAIN_ENTRY = dict(frames=1, points=(120000, 125000), seed=1,
                              "rulebook_decode": 5, "lookup_single": 0,
                              "rank_lookup": 0, "rank_pack": 2,
                              "merge_lookup": 6})
+# phase 3f: the published nuScenes-lidarseg MSeg3D config (0.1 m grid
+# 41x1024x1024, capacity 40960 / 40960, six 1600x900 JPEG cameras resized
+# to 960x640, frozen_stages=3, with_cp, ACT_REMAT) evaluated through the
+# entry point on a seeded val scene (synthetic.write_semnusc_tree, infos
+# from tools.create_data --cams); its tables are (keys, keys, rank, rank)
+EVAL_NU = dict(config="configs/semanticnusc/MSeg3D/"
+               "semnusc_avgvfe_unetscn3d_hrnetw18_lr1en2_e12.py",
+               scenes=("scene-0003",), samples=6, points=(30000, 34688),
+               seed=2, ncls=17)
+# phase 3g: the same config trained through the entry point at its
+# samples_per_gpu=3 with the loader in shm mode (the tools' default on a
+# host with more than two CPUs) on three seeded train scenes of three key
+# frames: 2 epochs of 2 steps, then a resume for a third. Per step as in
+# phase 3e, plus the forward convs of the encoder's four residual stacks
+# (2 blocks x 2 convs each) again in the backward under ACT_REMAT: 36 + 16
+# forward + 35 dX convs
+TRAIN_NU = dict(scenes=("scene-0001", "scene-0002", "scene-0041"),
+                samples=3, points=(30000, 34688), seed=3, epochs=2, steps=2,
+                per_step={**TRAIN_ENTRY["per_step"], "rulebook_conv": 87},
+                loader_modes=("shm", "thread"))
 # card vs CPU through the entry point (phase 3's limits)
 MIN_LABEL_AGREE, MAX_MIOU_POINTS = 0.999, 0.1
 # phase 3d's labels must spread: classes predicted besides the ignore class
@@ -368,7 +411,8 @@ def fmt_bounds(row):
     return s + ")"
 
 
-def check_conv(report, name, feats, rb, cin, cout, gen, dx=False):
+def check_conv(report, name, feats, rb, cin, cout, gen, dx=False,
+               dtypes=("fp32", "bf16")):
     """rulebook_conv against rulebook_conv_plain in fp32 and bf16, twice
     (bit-identical reruns). feats [B, Vin, cin]. With ``dx`` the call is
     the data gradient's, as RulebookConvFn.backward makes it: feats is the
@@ -394,7 +438,8 @@ def check_conv(report, name, feats, rb, cin, cout, gen, dx=False):
     # are never read; dX reads no row for a miss)
     rows = int(torch.unique(rb[hit]).numel()) + (0 if dx else 1)
     M = rb.shape[1] * rb.shape[2]
-    for dt, torch_dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+    for dt in dtypes:
+        torch_dt = {"fp32": torch.float32, "bf16": torch.bfloat16}[dt]
         if dx:
             ff = feats.reshape(miss, cin).to(torch_dt).contiguous()
             w = w32.to(torch_dt).transpose(1, 2).contiguous()
@@ -1162,6 +1207,8 @@ def kernel_checks(runs):
                         subm_stream(xb, i))
         del xb, xst, x32
 
+        check_nusc_paths(report, runs, gen)
+
         # the 0.1 m SemanticKITTI grid: 41 x 1504 x (1504 + 2) cells, with
         # the scan's voxels spread over it key-sorted
         Z, Y, X = BIG_GRID
@@ -1189,6 +1236,44 @@ def kernel_checks(runs):
         check_edges(gen)
     torch.cuda.empty_cache()
     return report
+
+
+def check_nusc_paths(report, runs, gen):
+    """Phase 4's rows of the nuScenes paths (phases 3f, 3g): every
+    rulebook of a real scan and of a real B=3 batch on both table kinds,
+    the merge on their stage-1 and stage-2 KeyTables; at B=3 also the
+    conv, dX and dW at the stage-1 shape (3 x 40960 rows)."""
+    import torch
+
+    for name in ("eval_nu", "train_nu"):
+        ymodel, yex = runs[name]["model"], runs[name]["ex0"]
+        yst = ymodel.lidar_input(yex)
+        yb = ymodel.backbone_mod.structures(yst.structure)
+        YB, YV = yst.features.shape[:2]
+        log(f"  {name} stage voxels: " + " ".join(
+            f"s{i}={yb[f's{i}'].num_voxels.tolist()}/"
+            f"{yb[f's{i}'].capacity}" for i in range(1, 5)))
+        if name == "train_nu":
+            # the input conv's 13 channels (5 point + 8 encoded
+            # features) run in fp32 only: 13 bf16 values are not a
+            # multiple of 4 bytes
+            cin = yst.features.shape[-1]
+            y32 = torch.rand(YB, YV, 32, generator=gen).to(DEV)
+            check_conv(report, f"{name} subm B={YB} V={YV}",
+                       yst.features, yb["subm1"], cin, 32, gen,
+                       dtypes=("fp32",))
+            check_conv(report, f"dX of subm 32->32 {name} B={YB} "
+                       f"V={YV}", y32, yb["subm1"], 32, 32, gen, dx=True)
+            check_dw(report, f"{name} subm B={YB} V={YV}", y32,
+                     yb["subm1"], 32, 32, gen)
+            del y32
+        check_path_rulebooks(report, name, yb)
+        for i in (1, 2):
+            Z, Y, X = yb[f"s{i}"].spatial_shape
+            check_merge(report, f"{name} stage-{i} subm B={YB} "
+                        f"{Z * Y * (X + 2)} cells", yb[f"t{i}"],
+                        subm_stream(yb, i))
+        del yb, yst
 
 
 def check_outputs(ret, pred, N, ncls):
@@ -1742,8 +1827,10 @@ def host_pipeline_ms(dataset, cap):
         info = dataset.load_infos(i)
         sample = {"mode": "val" if dataset.test_mode else "train",
                   "rng": np.random.default_rng(i),
+                  "nsweeps": dataset.nsweeps,
                   "metadata": {"token": info["token"],
-                               "num_point_features": 4}}
+                               "num_point_features":
+                               dataset._num_point_features}}
         for t in dataset.pipeline.transforms:
             t0 = time.perf_counter()
             sample, info = t(sample, info)
@@ -1756,6 +1843,66 @@ def host_pipeline_ms(dataset, cap):
     ms = {k: v / len(dataset) for k, v in ms.items()}
     ms["total"] = sum(ms.values())
     return ms
+
+
+def jpeg_read_ms(dataset):
+    """Host milliseconds of one read_jpeg_bgr of frame 0's first camera,
+    and of its Huffman decoding alone (the C helper), the mean of 5."""
+    from lidarseg3d_torch.datasets.pipelines import jpeg_read as jr
+
+    info = dataset.load_infos(0)
+    path = info["cam_paths"][info["cam"]["chan"][0]]
+    with open(path, "rb") as f:
+        data = f.read()
+    jr.decode_jpeg_bgr(data)
+    real, scans = jr._Frame.scan, []
+
+    def timed(self, seg, buf):
+        t0 = time.perf_counter()
+        out = real(self, seg, buf)
+        scans.append(time.perf_counter() - t0)
+        return out
+
+    jr._Frame.scan = timed
+    try:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            jr.decode_jpeg_bgr(data)
+        total = (time.perf_counter() - t0) / 5
+    finally:
+        jr._Frame.scan = real
+    return dict(image_ms=total * 1e3, huffman_ms=sum(scans) / 5 * 1e3,
+                bytes=len(data))
+
+
+def dataset_in(cfg, split, tmp):
+    """The config's split as a dataset whose relative paths are taken
+    under ``tmp`` (where the tool runs)."""
+    from lidarseg3d_torch.datasets import build_dataset
+
+    d = cfg.data[split].to_dict()
+    for k in ("root_path", "info_path"):
+        if k in d:
+            d[k] = os.path.join(tmp, d[k])
+    return build_dataset(d)
+
+
+def write_nusc_tree(tmp, cfg, spec):
+    """A seeded nuScenes tree at the config's root path under ``tmp``, its
+    infos by the entry point tools.create_data (--cams) and its check
+    (--dry-data); -> seconds the tree took to write."""
+    from lidarseg3d_torch.synthetic import write_semnusc_tree
+    from lidarseg3d_torch.tools import create_data
+
+    root = os.path.join(tmp, cfg.data.val.root_path)
+    t0 = time.perf_counter()
+    write_semnusc_tree(root, scenes=spec["scenes"], samples=spec["samples"],
+                       points=spec["points"], seed=spec["seed"],
+                       max_range=spec.get("max_range", 50.0))
+    secs = time.perf_counter() - t0
+    create_data.main(["semanticnusc", "--root", root, "--cams"])
+    create_data.main(["semanticnusc", "--root", root, "--dry-data"])
+    return secs
 
 
 def eval_card_vs_cpu(tmp):
@@ -1809,39 +1956,55 @@ def eval_card_vs_cpu(tmp):
                 miou_cpu=mious[1])
 
 
-def published_frame_on_cpu(e, cfg_path, cfg, work, card):
-    """Frame 0 of phase 3d's tree, at its published size, through the
-    entry point on the CPU (the kernels' plain versions) from the same
+def write_frame0(e, cfg, tmp, one):
+    """Frame 0 of the eval tree alone, at its published size, for the
+    entry point run in ``one``: SemanticKITTI writes the same first frame
+    again (the same seed draws it), nuScenes an info file of frame 0's
+    info (its paths point into the tree under ``tmp``)."""
+    import pickle
+
+    if "scenes" not in e:
+        from lidarseg3d_torch.synthetic import write_semantickitti_tree
+
+        write_semantickitti_tree(os.path.join(one, cfg.data_root), ("08",),
+                                 frames=1, points=e["points"],
+                                 seed=e["seed"], image_hw=e["image_hw"],
+                                 max_range=e["max_range"])
+        return
+    src = os.path.join(tmp, cfg.data.val.info_path)
+    dst = os.path.join(one, cfg.data.val.info_path)
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    with open(src, "rb") as f, open(dst, "wb") as g:
+        pickle.dump(pickle.load(f)[:1], g)
+
+
+def published_frame_on_cpu(e, cfg_path, cfg, tmp, work, card, phase):
+    """Frame 0 of the eval tree, at its published size, through the entry
+    point on the CPU (the kernels' plain versions) from the same
     checkpoint: its labels agree with the card's on at least 99.9% of the
     points and its mIoU is within 0.1 point of the card's on that frame."""
     import shutil
     import tempfile
 
-    from lidarseg3d_torch.datasets import build_dataset
-    from lidarseg3d_torch.synthetic import write_semantickitti_tree
     from lidarseg3d_torch.tools import test as tool
 
-    tmp = tempfile.mkdtemp(prefix="semkitti_frame0_")
+    one = tempfile.mkdtemp(prefix="frame0_")
     try:
-        # the same seed draws the same first frame
-        write_semantickitti_tree(os.path.join(tmp, cfg.data_root), ("08",),
-                                 frames=1, points=e["points"],
-                                 seed=e["seed"], image_hw=e["image_hw"],
-                                 max_range=e["max_range"])
+        write_frame0(e, cfg, tmp, one)
         cwd = os.getcwd()
-        os.chdir(tmp)
+        os.chdir(one)
         try:
             t0 = time.perf_counter()
             cpu = tool.main([cfg_path, "--checkpoint", work, "--work_dir",
-                             os.path.join(tmp, "work"), "--device", "cpu"])
+                             os.path.join(one, "work"), "--device", "cpu"])
             secs = time.perf_counter() - t0
-            ds = build_dataset(cfg.data.val.to_dict())
+            ds = dataset_in(cfg, "val", one)
             mine = {t: card[t] for t in cpu["detections"]}
             miou_card = ds.evaluation(mine)[0]["results"]["mIoU"]
         finally:
             os.chdir(cwd)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(one, ignore_errors=True)
     predicted_classes(cpu["detections"], e["ncls"],
                       "published config, frame 0 on the CPU")
     share, total = label_agreement(mine, cpu["detections"])
@@ -1852,17 +2015,20 @@ def published_frame_on_cpu(e, cfg_path, cfg, work, card):
         f"{MIN_LABEL_AGREE}, {MAX_MIOU_POINTS} point)")
     if total == 0 or share < MIN_LABEL_AGREE \
             or not abs(miou_card - miou_cpu) <= MAX_MIOU_POINTS:
-        raise SystemExit("the entry point on the card disagrees with the "
-                         "CPU on the published config's frame 0")
+        raise SystemExit(f"phase {phase}: the entry point on the card "
+                         "disagrees with the CPU on the published config's "
+                         "frame 0")
     return dict(label_agreement=share, miou_card=miou_card,
                 miou_cpu=miou_cpu, cpu_seconds=secs)
 
 
-def run_eval_path(e=EVAL):
-    """Phase 3d: the published SemanticKITTI config evaluated through the
-    entry point (lidarseg3d_torch.tools.test main, in-process, --speed_test)
-    on a seeded tree, with its checks; then the device histogram, the host
-    pipeline's time, frame 0 on the CPU through the same entry point, and
+def run_eval_path(e=EVAL, phase="3d"):
+    """Phases 3d / 3f: a published config evaluated through the entry
+    point (lidarseg3d_torch.tools.test main, in-process, --speed_test) on
+    a seeded tree (SemanticKITTI: sequence 08 of PNG frames; nuScenes: a
+    val scene of JPEG cameras with the infos of tools.create_data), with
+    its checks; then the device histogram, the host pipeline's time,
+    frame 0 on the CPU through the same entry point, and (SemanticKITTI)
     the card against the CPU on the mini config. Returns the run for
     phases 4 and 5."""
     import shutil
@@ -1873,7 +2039,7 @@ def run_eval_path(e=EVAL):
     from lidarseg3d_torch.apis import eval as ev
     from lidarseg3d_torch.apis.train import TrainState, save_checkpoint
     from lidarseg3d_torch.core.seg_metrics import fast_hist
-    from lidarseg3d_torch.datasets import SegDataLoader, build_dataset
+    from lidarseg3d_torch.datasets import SegDataLoader, default_worker_mode
     from lidarseg3d_torch.models import build_detector
     from lidarseg3d_torch.ops import coords as co
     from lidarseg3d_torch.synthetic import write_semantickitti_tree
@@ -1884,24 +2050,33 @@ def run_eval_path(e=EVAL):
     cfg_path = os.path.join(here, e["config"])
     cfg = Config.fromfile(cfg_path)
     cap, ishape = cfg.capacity, tool.input_shape_of(cfg)
-    tmp = tempfile.mkdtemp(prefix="semkitti_eval_")
+    nusc = "scenes" in e
+    tmp = tempfile.mkdtemp(prefix=f"eval_{phase}_")
     try:
-        # the config's data_root is relative: the tree goes under tmp and
-        # the entry point runs with tmp as its working directory
-        data_root = os.path.join(tmp, cfg.data_root)
-        t0 = time.perf_counter()
-        write_semantickitti_tree(data_root, ("08",), frames=e["frames"],
-                                 points=e["points"], seed=e["seed"],
-                                 image_hw=e["image_hw"],
-                                 max_range=e["max_range"])
-        H, W = e["image_hw"]
-        log(f"  tree: sequence 08, {e['frames']} frames of "
-            f"{e['points'][0]}-{e['points'][1]} points and {W}x{H} images "
-            f"written in {time.perf_counter() - t0:.2f} s; grid {ishape}, "
-            f"capacity {dict(cap)}")
-        ds_cfg = cfg.data.val.to_dict()
-        ds_cfg["root_path"] = data_root
-        ds = build_dataset(ds_cfg)
+        # the config's paths are relative: the tree goes under tmp and the
+        # entry point runs with tmp as its working directory
+        if nusc:
+            secs = write_nusc_tree(tmp, cfg, e)
+            what = (f"{len(e['scenes'])} val scene(s) of {e['samples']} "
+                    f"key frames, {e['points'][0]}-{e['points'][1]} points "
+                    "and six 1600x900 JPEGs each")
+        else:
+            t0 = time.perf_counter()
+            write_semantickitti_tree(os.path.join(tmp, cfg.data_root),
+                                     ("08",), frames=e["frames"],
+                                     points=e["points"], seed=e["seed"],
+                                     image_hw=e["image_hw"],
+                                     max_range=e["max_range"])
+            secs = time.perf_counter() - t0
+            H, W = e["image_hw"]
+            what = (f"sequence 08, {e['frames']} frames of "
+                    f"{e['points'][0]}-{e['points'][1]} points and {W}x{H} "
+                    "PNGs")
+        nframes = e["samples"] * len(e["scenes"]) if nusc else e["frames"]
+        log(f"  tree: {what} written in {secs:.2f} s; grid {ishape}, "
+            f"capacity {dict(cap)}, loader {default_worker_mode(cfg.data)} "
+            f"x{cfg.data.workers_per_gpu}")
+        ds = dataset_in(cfg, "val", tmp)
         model = build_detector(cfg.model.to_dict(), device=DEV, seed=0)
         hb = model.img_backbone_mod
         if hb.frozen_stages != 3 or not hb.frozen_parameters():
@@ -1933,8 +2108,8 @@ def run_eval_path(e=EVAL):
             f"{per_scan}")
         # the stage tables are (keys, keys, rank, rank), as on semnusc
         want = {k: nscan * c for k, c in KEYS_KEYS_RANK_RANK.items()}
-        if nscan != e["frames"] or launches != want:
-            raise SystemExit(f"phase 3d: {nscan} scans, launches "
+        if nscan != nframes or launches != want:
+            raise SystemExit(f"phase {phase}: {nscan} scans, launches "
                              f"{launches}, expected {want}")
 
         # predictions cover every point of each label file, in range, and
@@ -1951,7 +2126,7 @@ def run_eval_path(e=EVAL):
                                     "published config on the card")
         miou = out["results"]["results"]["mIoU"]
         if not (np.isfinite(miou) and 0.0 < miou <= 100.0):
-            raise SystemExit(f"phase 3d: mIoU {miou}")
+            raise SystemExit(f"phase {phase}: mIoU {miou}")
         lat = np.asarray(out["latencies"]) * 1e3
         mid = lat[len(lat) // 3: 2 * len(lat) // 3]
         warm = lat[1:]
@@ -2006,9 +2181,14 @@ def run_eval_path(e=EVAL):
         pipe = host_pipeline_ms(ds, cap)
         log("  host pipeline ms per frame (one thread): " + ", ".join(
             f"{k} {v:.2f}" for k, v in pipe.items()))
-        frame0 = published_frame_on_cpu(e, cfg_path, cfg, work,
-                                        out["detections"])
-        agreement = eval_card_vs_cpu(tmp)
+        jpeg = jpeg_read_ms(ds) if nusc else None
+        if jpeg:
+            log(f"  read_jpeg_bgr of one 1600x900 camera ({jpeg['bytes']} "
+                f"bytes): {jpeg['image_ms']:.2f} ms, of which the Huffman "
+                f"decoding (C) {jpeg['huffman_ms']:.2f} ms")
+        frame0 = published_frame_on_cpu(e, cfg_path, cfg, tmp, work,
+                                        out["detections"], phase)
+        agreement = None if nusc else eval_card_vs_cpu(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     result = dict(p50_ms=float(np.percentile(warm, 50)),
@@ -2019,8 +2199,8 @@ def run_eval_path(e=EVAL):
                   peak_memory_gib=peak, miou=miou,
                   predicted_classes=[int(c) for c in classes],
                   launches_per_scan=per_scan, host_pipeline_ms=pipe,
-                  tables=tables, frame0_card_vs_cpu=frame0,
-                  card_vs_cpu=agreement)
+                  jpeg_read_ms=jpeg, tables=tables,
+                  frame0_card_vs_cpu=frame0, card_vs_cpu=agreement)
     return dict(result=result, launches=launches, model=model, ex0=ex0,
                 path=dict(V=cap["max_voxels"], N=cap["max_points"]))
 
@@ -2048,7 +2228,7 @@ def state_equals_checkpoint(state, path):
     return bad
 
 
-def train_entry_hook(ws, per_step, record):
+def train_entry_hook(ws, per_step, record, phase):
     """A TrainerHook that, after every step, holds each kernel's launches
     since the last step to ``per_step`` and the step's loss terms to
     finite values (kept in record["losses"]), snapshots the parameters at
@@ -2070,14 +2250,15 @@ def train_entry_hook(ws, per_step, record):
             vals = {k: float(v) for k, v in ldict.items()}
             bad = [k for k, v in vals.items() if not math.isfinite(v)]
             if bad or "grad_norm" not in vals:
-                raise SystemExit(f"phase 3e step {global_step}: non-finite "
-                                 f"or missing loss terms {bad}: {vals}")
+                raise SystemExit(f"phase {phase} step {global_step}: "
+                                 f"non-finite or missing loss terms {bad}: "
+                                 f"{vals}")
             now = {k: w.launches for k, w in ws.items()}
             delta = {k: now[k] - self.last[k] for k in ws}
             self.last = now
             if delta != per_step:
-                raise SystemExit(f"phase 3e step {global_step}: launches "
-                                 f"{delta}, expected {per_step}")
+                raise SystemExit(f"phase {phase} step {global_step}: "
+                                 f"launches {delta}, expected {per_step}")
             record.setdefault("losses", []).append((global_step, vals))
 
         def after_run(self, state):
@@ -2086,21 +2267,50 @@ def train_entry_hook(ws, per_step, record):
                      if torch.equal(p, params[k])
                      or not torch.isfinite(params[k]).all()]
             if still:
-                raise SystemExit(f"phase 3e: {len(still)} parameters outside "
-                                 f"the frozen stages did not move or are not "
-                                 f"finite: {still[:5]}")
+                raise SystemExit(f"phase {phase}: {len(still)} parameters "
+                                 "outside the frozen stages did not move or "
+                                 f"are not finite: {still[:5]}")
             record["moved"] = len(self.before)
 
     return Hook()
 
 
-def run_train_entry(t=TRAIN_ENTRY, e=EVAL):
-    """Phase 3e: the published SemanticKITTI config trained through the
-    entry point (lidarseg3d_torch.tools.train main, in-process, B=2) on a
-    seeded tree of one frame in each train sequence: --total_epochs 2
-    --max_steps_per_epoch 3, then --resume_from --total_epochs 3, with
-    the checks of train_entry_hook and of the resumed state; the step
-    time, the loader's wait, the train pipeline's time per stage and the
+def loader_alone_ms(ds, cfg, B, modes):
+    """The loader alone, the config's worker count, no step competing:
+    per mode, ms a batch over epoch 0 (its start included: the shm mode
+    spawns its workers and builds one batch in-process for the slot
+    layout) and over epoch 1 (the workers already up)."""
+    from lidarseg3d_torch.datasets import SegDataLoader
+
+    cap = cfg.capacity
+    n = cfg.data.get("workers_per_gpu", 4)
+    out = {}
+    for mode in modes:
+        with SegDataLoader(ds, B, cap["max_voxels"], cap["max_points"],
+                           seed=7, num_workers=n, worker_mode=mode,
+                           on_overflow="error") as loader:
+            res = []
+            for epoch in (0, 1):
+                t0 = time.perf_counter()
+                nb = len(list(loader.epoch(epoch)))
+                res.append((time.perf_counter() - t0) * 1e3 / nb)
+        out[mode] = dict(workers=n, batches=nb, epoch0_ms=res[0],
+                         epoch1_ms=res[1])
+        log(f"  the loader alone ({mode}, {n} workers): {nb} batches of {B} "
+            f"frames an epoch, {res[0]:.2f} ms a batch over epoch 0 (its "
+            f"start included), {res[1]:.2f} over epoch 1")
+    return out
+
+
+def run_train_entry(t=TRAIN_ENTRY, e=EVAL, phase="3e"):
+    """Phases 3e / 3g: a published config trained through the entry point
+    (lidarseg3d_torch.tools.train main, in-process, B = samples_per_gpu)
+    on a seeded tree (SemanticKITTI: one frame in each train sequence;
+    nuScenes: key frames of train scenes with the infos of
+    tools.create_data): --total_epochs E --max_steps_per_epoch S, then
+    --resume_from --total_epochs E+1, with the checks of
+    train_entry_hook and of the resumed state; the step time, the loader's
+    wait, the train pipeline's time per stage, the loader alone and the
     peak memory. Returns the run for phases 4 and 5."""
     import shutil
     import tempfile
@@ -2108,7 +2318,7 @@ def run_train_entry(t=TRAIN_ENTRY, e=EVAL):
     import numpy as np
     import torch
     from lidarseg3d_torch.apis import train as tr
-    from lidarseg3d_torch.datasets import SegDataLoader, build_dataset
+    from lidarseg3d_torch.datasets import SegDataLoader, default_worker_mode
     from lidarseg3d_torch.ops import coords as co
     from lidarseg3d_torch.solver.optim import build_one_cycle_optimizer
     from lidarseg3d_torch.synthetic import (write_eval_config,
@@ -2118,29 +2328,44 @@ def run_train_entry(t=TRAIN_ENTRY, e=EVAL):
     from lidarseg3d_torch.utils.config import Config
 
     here = os.path.dirname(os.path.abspath(__file__))
-    tmp = tempfile.mkdtemp(prefix="semkitti_train_")
+    nusc = "scenes" in t
+    tmp = tempfile.mkdtemp(prefix=f"train_{phase}_")
     try:
         base = Config.fromfile(os.path.join(here, e["config"]))
-        seqs = list(base.train_seq)
-        data_root = os.path.join(tmp, "sequences")
-        t0 = time.perf_counter()
-        write_semantickitti_tree(data_root, seqs, frames=t["frames"],
-                                 points=t["points"], seed=t["seed"],
-                                 image_hw=t["image_hw"],
-                                 max_range=t["max_range"])
-        cfg_path = write_eval_config(os.path.join(tmp, "train.py"),
-                                     os.path.join(here, e["config"]),
-                                     data_root)
+        if nusc:
+            cfg_path = os.path.join(here, e["config"])
+            secs = write_nusc_tree(tmp, base, t)
+            what = (f"train scenes {list(t['scenes'])}, {t['samples']} key "
+                    f"frames each of {t['points'][0]}-{t['points'][1]} "
+                    "points and six 1600x900 JPEGs")
+        else:
+            seqs = list(base.train_seq)
+            data_root = os.path.join(tmp, "sequences")
+            t0 = time.perf_counter()
+            write_semantickitti_tree(data_root, seqs, frames=t["frames"],
+                                     points=t["points"], seed=t["seed"],
+                                     image_hw=t["image_hw"],
+                                     max_range=t["max_range"])
+            secs = time.perf_counter() - t0
+            cfg_path = write_eval_config(os.path.join(tmp, "train.py"),
+                                         os.path.join(here, e["config"]),
+                                         data_root)
+            H, W = t["image_hw"]
+            what = (f"sequences {seqs}, {t['frames']} frame each of "
+                    f"{t['points'][0]}-{t['points'][1]} points and {W}x{H} "
+                    "PNGs")
         cfg = Config.fromfile(cfg_path)
         cap, ishape = cfg.capacity, eval_tool.input_shape_of(cfg)
         B = cfg.data.samples_per_gpu
-        H, W = t["image_hw"]
-        log(f"  tree: sequences {seqs}, {t['frames']} frame each of "
-            f"{t['points'][0]}-{t['points'][1]} points and {W}x{H} images "
-            f"written in {time.perf_counter() - t0:.2f} s; B={B}, grid "
-            f"{ishape}, capacity {dict(cap)}, pretrained "
+        mode = default_worker_mode(cfg.data)
+        log(f"  tree: {what} written in {secs:.2f} s; B={B}, grid {ishape}, "
+            f"capacity {dict(cap)}, loader {mode} "
+            f"x{cfg.data.workers_per_gpu}, pretrained "
             f"{cfg.model.img_backbone.get('pretrained')} (missing: not "
             "loaded)")
+        if nusc and mode != "shm":
+            raise SystemExit(f"phase {phase}: the loader would run in "
+                             f"{mode} mode, not shm ({os.cpu_count()} CPUs)")
         work = os.path.join(tmp, "work")
         args = [cfg_path, "--work_dir", work, "--max_steps_per_epoch",
                 str(t["steps"]), "--device", DEV]
@@ -2151,10 +2376,11 @@ def run_train_entry(t=TRAIN_ENTRY, e=EVAL):
             w.launches = 0
         torch.cuda.reset_peak_memory_stats()
         cwd = os.getcwd()
-        os.chdir(tmp)  # the config's relative pretrained path is missing
+        os.chdir(tmp)  # the config's relative paths (pretrained: missing)
         try:
             tool.main(args + ["--total_epochs", str(t["epochs"])],
-                      hooks=[train_entry_hook(ws, t["per_step"], record)],
+                      hooks=[train_entry_hook(ws, t["per_step"], record,
+                                              phase)],
                       timings=timings)
             torch.cuda.synchronize()
             launches = {k: w.launches for k, w in ws.items()}
@@ -2164,17 +2390,17 @@ def run_train_entry(t=TRAIN_ENTRY, e=EVAL):
             want_files = [f"epoch_{i + 1}" for i in range(t["epochs"])] + [
                 "latest.txt", "train.log"]
             if files != want_files or len(timings) != nsteps:
-                raise SystemExit(f"phase 3e: {files} after {len(timings)} "
-                                 f"steps, expected {want_files} after "
-                                 f"{nsteps}")
+                raise SystemExit(f"phase {phase}: {files} after "
+                                 f"{len(timings)} steps, expected "
+                                 f"{want_files} after {nsteps}")
             with open(os.path.join(work, "latest.txt")) as f:
                 latest = f.read().strip()
             if latest != f"epoch_{t['epochs']}":
-                raise SystemExit(f"phase 3e: latest.txt names {latest}")
+                raise SystemExit(f"phase {phase}: latest.txt names {latest}")
             want = {k: nsteps * c for k, c in t["per_step"].items()}
             if launches != want:
-                raise SystemExit(f"phase 3e: launches {launches}, expected "
-                                 f"{want}")
+                raise SystemExit(f"phase {phase}: launches {launches}, "
+                                 f"expected {want}")
             log(f"  {nsteps} steps over {t['epochs']} epochs: launches "
                 f"{launches} (per step {t['per_step']}); "
                 f"{record['moved']} parameters outside the frozen stages "
@@ -2198,13 +2424,13 @@ def run_train_entry(t=TRAIN_ENTRY, e=EVAL):
             out = tool.main(args + ["--resume_from", "--total_epochs",
                                     str(t["epochs"] + 1)],
                             hooks=[check, train_entry_hook(
-                                ws, t["per_step"], record)])
+                                ws, t["per_step"], record, phase)])
         finally:
             os.chdir(cwd)
         if check.diff or check.start != (nsteps, nsteps) \
                 or check.first != nsteps:
-            raise SystemExit(f"phase 3e resume: differs from {latest} in "
-                             f"{check.diff[:5]}; starts at {check.start}, "
+            raise SystemExit(f"phase {phase} resume: differs from {latest} "
+                             f"in {check.diff[:5]}; starts at {check.start}, "
                              f"first step {check.first}, expected {nsteps}")
         log(f"  resume: the state loaded from {latest} equals the saved one "
             f"exactly (every parameter and buffer, Adam count / mu / nu, "
@@ -2224,9 +2450,9 @@ def run_train_entry(t=TRAIN_ENTRY, e=EVAL):
         # the stage tables of the first batch, and the example of phase 4
         state = out["state"]
         model = state.model
-        ds = build_dataset(cfg.data.train.to_dict())
+        ds = dataset_in(cfg, "train", tmp)
         with SegDataLoader(ds, B, cap["max_voxels"], cap["max_points"],
-                           shuffle=False, num_workers=2,
+                           shuffle=False, num_workers=B,
                            on_overflow="error") as loader:
             ex0 = tr.example_to_device(next(loader.epoch(0)), DEV)
         ex0["input_shape"] = ishape
@@ -2235,26 +2461,17 @@ def run_train_entry(t=TRAIN_ENTRY, e=EVAL):
                 model.lidar_input(ex0).structure)
         kinds = tuple("keys" if isinstance(books[f"t{i}"], co.KeyTable)
                       else "rank" for i in range(1, 5))
-        nv = [int(books[f"s{i}"].num_voxels.sum()) for i in range(1, 5)]
+        nv = [books[f"s{i}"].num_voxels.tolist() for i in range(1, 5)]
         del books
         log(f"  stage tables {kinds}; voxels of the first batch by stage "
             f"{nv}")
         if kinds != ("keys", "keys", "rank", "rank"):
-            raise SystemExit(f"phase 3e: table kinds {kinds}")
+            raise SystemExit(f"phase {phase}: table kinds {kinds}")
         pipe = host_pipeline_ms(ds, cap)
         log("  train pipeline ms per frame (one thread): " + ", ".join(
             f"{k} {v:.2f}" for k, v in pipe.items()))
-        # the loader alone, the config's thread count, no step competing
-        nworkers = cfg.data.get("workers_per_gpu", 4)
-        with SegDataLoader(ds, B, cap["max_voxels"], cap["max_points"],
-                           seed=7, num_workers=nworkers,
-                           on_overflow="error") as loader:
-            t0 = time.perf_counter()
-            nb = len(list(loader.epoch(0)))
-            loader_ms = (time.perf_counter() - t0) * 1e3 / nb
-        log(f"  the loader alone ({nworkers} threads): {nb} batches of {B} "
-            f"frames, {loader_ms:.2f} ms a batch, against a step p50 of "
-            f"{np.percentile(steps, 50):.2f} ms")
+        alone = loader_alone_ms(ds, cfg, B, t.get("loader_modes",
+                                                  ("thread",)))
         opt, _ = build_one_cycle_optimizer(
             dict(cfg.optimizer), dict(cfg.lr_config),
             (t["epochs"] + 1) * t["steps"],
@@ -2266,10 +2483,10 @@ def run_train_entry(t=TRAIN_ENTRY, e=EVAL):
                   step_ms=[x["step_s"] * 1e3 for x in timings],
                   data_wait_ms=waits.tolist(),
                   data_wait_p50_ms=float(np.percentile(waits, 50)),
-                  peak_memory_gib=peak, launches_per_step=t["per_step"],
-                  tables=list(kinds), voxels_first_batch=nv,
-                  host_pipeline_ms=pipe, loader_alone_ms_per_batch=loader_ms,
-                  last_losses=record["losses"][-1][1])
+                  loader_mode=mode, peak_memory_gib=peak,
+                  launches_per_step=t["per_step"], tables=list(kinds),
+                  voxels_first_batch=nv, host_pipeline_ms=pipe,
+                  loader_alone=alone, last_losses=record["losses"][-1][1])
     return dict(result=result, launches=launches, model=model, ex0=ex0,
                 state=state, step=tr.make_train_step(model, opt, ishape),
                 path=dict(V=cap["max_voxels"], N=cap["max_points"]))
@@ -2349,8 +2566,9 @@ def profile_structures(name, r):
     out = dict(device_busy_share=share,
                device_ms=sum(us for us, _ in per_name.values()) / 1e3,
                kernels=sum(c for _, c in per_name.values()))
+    before = BUILD_KERNELS_BEFORE.get(name, "not measured, a later path")
     log(f"  {name} build: {out['kernels']} device kernels (before the fused "
-        f"rulebook kernels: {BUILD_KERNELS_BEFORE[name]}), device "
+        f"rulebook kernels: {before}), device "
         f"{out['device_ms']:.3f} ms, busy share "
         + ("not measured" if share is None else f"{100 * share:.1f}%"))
     return out
@@ -2405,7 +2623,8 @@ def main():
         f"cuda {torch.version.cuda}")
     log("phase 2: build")
     secs = cuda_build.build()
-    log(f"  built {sorted(cuda_build.SOURCES)} in {secs:.1f} s")
+    log(f"  built {sorted(cuda_build.SOURCES)} (nvcc) and "
+        f"{sorted(cuda_build.HOST_SOURCES)} (cc) in {secs:.1f} s")
     for name, text in sorted(cuda_build.build_logs.items()):
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -2421,6 +2640,11 @@ def main():
     runs["eval"] = run_eval_path()
     log("phase 3e: main path train entry (published semkitti config, B=2)")
     runs["train_entry"] = run_train_entry()
+    log("phase 3f: main path eval-nu (published nuScenes config)")
+    runs["eval_nu"] = run_eval_path(EVAL_NU, "3f")
+    log("phase 3g: main path train-nu (published nuScenes config, B=3, "
+        "shm loader)")
+    runs["train_nu"] = run_train_entry(TRAIN_NU, EVAL_NU, "3g")
     log("phase 4: kernels against their plain versions")
     report = kernel_checks(runs)
     for row in report:
@@ -2432,7 +2656,7 @@ def main():
         "and each inference path's structures+rulebooks build")
     for name, r in runs.items():
         log(f"  {name}:")
-        training = name in ("train", "train_entry")
+        training = name in ("train", "train_entry", "train_nu")
         if training:
             fn = lambda r=r: r["step"](r["state"], r["ex0"])  # noqa: E731
         else:

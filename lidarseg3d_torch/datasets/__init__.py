@@ -6,5 +6,7 @@ from .registry import DATASETS, PIPELINES  # noqa: F401
 from .builder import build_dataset  # noqa: F401
 from .pipelines import compose, loading, seg_preprocess  # noqa: F401
 from .semantickitti import dataset as _semkitti  # noqa: F401
-from .loader import EpochSampler, SegDataLoader  # noqa: F401
+from .nuscenes import dataset as _nusc  # noqa: F401
+from .loader import (EpochSampler, SegDataLoader,  # noqa: F401
+                     default_worker_mode)
 from .batching import collate_segnet, pad_batch_rows  # noqa: F401

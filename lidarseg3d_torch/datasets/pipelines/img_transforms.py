@@ -36,9 +36,10 @@ def _source_taps(dsize, ssize):
 
 
 def _coefs(f):
+    # int32 holds every product: 255 * 2048 >> 4 times 2048
     one, scale = np.float32(1), np.float32(_COEF_SCALE)
-    return (np.rint((one - f) * scale).astype(np.int64),
-            np.rint(f * scale).astype(np.int64))
+    return (np.rint((one - f) * scale).astype(np.int32),
+            np.rint(f * scale).astype(np.int32))
 
 
 def resize_linear_u8(image, width, height):
@@ -51,7 +52,7 @@ def resize_linear_u8(image, width, height):
     a0, a1 = _coefs(fx)
     sy, fy = _source_taps(height, H0)  # rows: clamped, weights kept
     b0, b1 = _coefs(fy)
-    src = image.astype(np.int64)
+    src = image.astype(np.int32)
     rows = (src[:, sx] * a0[None, :, None]
             + src[:, np.minimum(sx + 1, W0 - 1)] * a1[None, :, None]) >> 4
     r0 = rows[np.clip(sy, 0, H0 - 1)]

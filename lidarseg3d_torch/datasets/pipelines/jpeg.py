@@ -3,7 +3,8 @@
 q])[1], cv2.IMREAD_COLOR)`` returns, for machines without cv2 or PIL.
 
 The augmentation keeps only the decoded pixels, so the lossless Huffman
-coding between the two halves is left out. Everything else follows
+coding between the two halves is left out here; jpeg_read.py puts it
+back (in C) around the same halves to read and write JPEG files. Everything else follows
 libjpeg(-turbo) with OpenCV's settings (baseline, 4:2:0, the accurate
 integer DCT, fancy upsampling):
 
@@ -135,16 +136,28 @@ def _blocks(plane, rows, cols):
     return p.reshape(rows // 8, 8, cols // 8, 8).swapaxes(1, 2)
 
 
-def _code_plane(blocks, table):
-    """Samples [..., 8, 8] -> decoded samples, through the forward DCT,
-    quantisation, dequantisation and the inverse DCT."""
+def quantize(blocks, table):
+    """Samples [..., 8, 8] -> quantised DCT coefficients (int64, natural
+    order), through the forward DCT and round-half-up quantisation."""
     d = _fdct_1d(blocks.astype(np.int64) - 128, last=False)
     d = _fdct_1d(d.swapaxes(-1, -2), last=True).swapaxes(-1, -2)
     div = table * 8  # the ISLOW output is scaled up by 8
-    coef = np.sign(d) * ((np.abs(d) + div // 2) // div)
+    return np.sign(d) * ((np.abs(d) + div // 2) // div)
+
+
+def reconstruct(coef, table):
+    """Quantised coefficients [..., 8, 8] -> uint8 samples, through the
+    dequantisation and the inverse DCT. int32 coefficients stay int32:
+    the ISLOW arithmetic of 8-bit data fits 32 bits, as in libjpeg."""
     c = _idct_1d((coef * table).swapaxes(-1, -2), last=False)
     c = _idct_1d(c.swapaxes(-1, -2), last=True)
     return _RANGE[c & 1023]
+
+
+def _code_plane(blocks, table):
+    """Samples [..., 8, 8] -> decoded samples, through the forward DCT,
+    quantisation, dequantisation and the inverse DCT."""
+    return reconstruct(quantize(blocks, table), table)
 
 
 def _unblock(blocks):
@@ -169,16 +182,32 @@ def _upsample(plane, H, W):
     h, w = -(-H // 2), -(-W // 2)
     if w <= 2:
         return plane[:h, :w].repeat(2, 0).repeat(2, 1)[:H, :W].astype(
-            np.int64)
-    p = np.pad(plane[:h, :w].astype(np.int64), 1, mode="edge")
+            np.int32)
+    p = np.pad(plane[:h, :w].astype(np.int32), 1, mode="edge")
     near = 3 * p[1:-1]
-    cols = np.empty((2 * h, w + 2), np.int64)
+    cols = np.empty((2 * h, w + 2), np.int32)
     cols[0::2] = near + p[:-2]  # output row 2i leans on input row i - 1
     cols[1::2] = near + p[2:]
-    out = np.empty((2 * h, 2 * w), np.int64)
+    out = np.empty((2 * h, 2 * w), np.int32)
     out[:, 0::2] = (3 * cols[:, 1:-1] + cols[:, :-2] + 8) >> 4
     out[:, 1::2] = (3 * cols[:, 1:-1] + cols[:, 2:] + 7) >> 4
     return out[:H, :W]
+
+
+def _upsample_h2v1(plane, H, W):
+    """h2v1 fancy upsampling (jdsample.c) of the first H x ceil(W/2)
+    samples, the last column repeated past them -> [H, W]; plain 2x
+    repetition when the chroma is at most 2 samples wide."""
+    w = -(-W // 2)
+    if w <= 2:
+        return plane[:H, :w].repeat(2, 1)[:, :W].astype(np.int32)
+    p = np.pad(plane[:H, :w].astype(np.int32), ((0, 0), (1, 1)),
+               mode="edge")
+    near = 3 * p[:, 1:-1]
+    out = np.empty((H, 2 * w), np.int32)
+    out[:, 0::2] = (near + p[:, :-2] + 1) >> 2
+    out[:, 1::2] = (near + p[:, 2:] + 2) >> 2
+    return out[:, :W]
 
 
 def _rgb_to_ycc(r, g, b):

@@ -1,19 +1,31 @@
-"""Point cloud and image loading stages, SemanticKITTI branches (own copy
-of lidarseg3d_tpu/datasets/pipelines/loading.py without cv2).
+"""Point cloud and image loading stages, SemanticKITTI and nuScenes
+branches (own copy of lidarseg3d_tpu/datasets/pipelines/loading.py
+without cv2).
 
-KITTI .bin scans are float32 [x, y, z, intensity] rows; each point gets its
-camera projection through P2 @ Tr of the sequence's calib.txt. Images are
-read by png.read_png_bgr, which gives what cv2.imread gives. The labels
-file of a scan holds uint32 words: the semantic id in the low 16 bits
-(mapped through the learning map), the instance id above. The image label
-maps are drawn as cv2.circle draws a filled circle (``circle_offsets``,
-``splat_circles``). The nuScenes and Waymo branches are not ported yet
-and raise (ROADMAP A6).
+SemanticKITTI: .bin scans are float32 [x, y, z, intensity] rows; each
+point gets its camera projection through P2 @ Tr of the sequence's
+calib.txt; the labels file of a scan holds uint32 words: the semantic id
+in the low 16 bits (mapped through the learning map), the instance id
+above.
+
+nuScenes: LIDAR_TOP .pcd.bin scans are float32 [x, y, z, intensity, ring]
+rows; with ``nsweeps > 1`` the earlier sweeps of the infos are moved into
+the key frame (``sweep_to_ref``) and every row gets a time-lag column (0
+for the key frame); each point gets its projection into the six cameras
+through ``ref_to_global``, ``cams_from_global`` and the intrinsics, in
+float64; the lidarseg file holds one uint8 raw id per key-frame point.
+
+Images are read by png.read_png_bgr (SemanticKITTI) and
+jpeg_read.read_jpeg_bgr (nuScenes), which give what cv2.imread gives. The
+image label maps are drawn as cv2.circle draws a filled circle
+(``circle_offsets``, ``splat_circles``). The Waymo branches are not
+ported yet and raise (ROADMAP A8).
 """
 
 import numpy as np
 
 from ..registry import PIPELINES
+from .jpeg_read import read_jpeg_bgr
 from .png import read_png_bgr
 
 
@@ -38,10 +50,13 @@ def select_points_in_frustum(pts_2d, x1, y1, x2, y2):
             & (pts_2d[:, 1] >= y1) & (pts_2d[:, 1] < y2))
 
 
+PORTED = ("SemanticKITTIDataset", "SemanticNuscDataset")
+
+
 def _not_ported(kind):
     return NotImplementedError(
         f"{kind} is not ported to lidarseg3d_torch yet (only "
-        "SemanticKITTIDataset is; ROADMAP A6)")
+        f"{' and '.join(PORTED)} are; ROADMAP A8)")
 
 
 def circle_offsets(radius):
@@ -112,19 +127,66 @@ class LoadPointCloudFromFile:
 
     def __call__(self, sample, info):
         sample["type"] = self.type
-        if self.type != "SemanticKITTIDataset":
+        if self.type == "SemanticKITTIDataset":
+            points = np.fromfile(info["path"], dtype=np.float32).reshape(
+                -1, 4)
+            sample["points"] = points
+            if self.use_img:
+                sample["points_cp"] = self._kitti_points_cp(points,
+                                                            info["path"])
+        elif self.type == "SemanticNuscDataset":
+            points = np.fromfile(info["lidar_path"],
+                                 dtype=np.float32).reshape(-1, 5)
+            nsweeps = sample.get("nsweeps", 1)
+            if nsweeps > 1:
+                rows = [np.concatenate(
+                    [points, np.zeros((len(points), 1), np.float32)], 1)]
+                for sw in info["sweeps"][: nsweeps - 1]:
+                    p = np.fromfile(sw["lidar_path"],
+                                    dtype=np.float32).reshape(-1, 5)
+                    hom = np.concatenate(
+                        [p[:, :3], np.ones((len(p), 1), np.float32)], 1)
+                    p[:, :3] = (sw["sweep_to_ref"] @ hom.T).T[:, :3]
+                    lag = np.full((len(p), 1), sw["time_lag"], np.float32)
+                    rows.append(np.concatenate([p, lag], 1))
+                points = np.concatenate(rows, 0)
+            sample["points"] = points
+            if self.use_img:
+                sample["points_cp"] = self._nusc_points_cp(points, info)
+        else:
             raise _not_ported(self.type)
-        points = np.fromfile(info["path"], dtype=np.float32).reshape(-1, 4)
-        sample["points"] = points
-        if self.use_img:
-            sample["points_cp"] = self._kitti_points_cp(points, info["path"])
         return sample, info
+
+    @staticmethod
+    def _nusc_points_cp(points, info):
+        """Per-point [cam_id, w, h] through lidar -> global -> camera ->
+        image in float64, cam_id 1-based in cam_chan order (a later camera
+        overwrites an earlier one), invalid rows -100; a point counts when
+        it is in front of the camera and strictly inside (1, 1599) x
+        (1, 899) of the 1600x900 image."""
+        im_h, im_w = 900, 1600
+        cp = np.full((len(points), 3), -100.0, np.float32)
+        hom = np.concatenate(
+            [points[:, :3], np.ones((len(points), 1), np.float32)], 1)
+        pts_global = info["ref_to_global"].astype(np.float64) @ hom.T
+        for cam_id, chan in enumerate(info["cam"]["chan"]):
+            pts_cam = (info["cams_from_global"][chan].astype(np.float64)
+                       @ pts_global)[:3]
+            uvw = np.asarray(info["cam_intrinsics"][chan], np.float64) \
+                @ pts_cam
+            uv = uvw[:2] / np.maximum(uvw[2:3], 1e-6)
+            mask = ((pts_cam[2] > 0) & (uv[0] > 1) & (uv[0] < im_w - 1)
+                    & (uv[1] > 1) & (uv[1] < im_h - 1))
+            cp[mask, 0] = cam_id + 1
+            cp[mask, 1] = uv[0][mask]
+            cp[mask, 2] = uv[1][mask]
+        return cp
 
 
 @PIPELINES.register_module
 class LoadImageFromFile:
-    """BGR reads of the frame's camera set (the image_2 PNG of a
-    SemanticKITTI scan)."""
+    """BGR reads of the frame's camera set: the image_2 PNG of a
+    SemanticKITTI scan, the JPEGs of a nuScenes sample by channel."""
 
     def __init__(self, use_img=True, **kwargs):
         self.use_img = use_img
@@ -132,34 +194,50 @@ class LoadImageFromFile:
     def __call__(self, sample, info):
         if not self.use_img:
             return sample, info
-        if sample["type"] != "SemanticKITTIDataset":
+        if sample["type"] == "SemanticKITTIDataset":
+            img_path = (info["path"].replace("velodyne", "image_2")
+                        .replace(".bin", ".png"))
+            sample["images"] = [read_png_bgr(img_path)
+                                for _ in info["cam"]["names"]]
+        elif sample["type"] == "SemanticNuscDataset":
+            sample["images"] = [read_jpeg_bgr(info["cam_paths"][c])
+                                for c in info["cam"]["chan"]]
+        else:
             raise _not_ported(sample["type"])
-        img_path = (info["path"].replace("velodyne", "image_2")
-                    .replace(".bin", ".png"))
-        cam_paths = {"1": img_path}
-        sample["images"] = [read_png_bgr(cam_paths[c])
-                            for c in info["cam"]["names"]]
         return sample, info
 
 
 @PIPELINES.register_module
 class LoadPointCloudAnnotations:
-    """Per-point semantic and instance labels of a SemanticKITTI scan."""
+    """Per-point semantic (and, for SemanticKITTI, instance) labels of a
+    scan; with several nuScenes sweeps only the key frame's points are
+    labelled, the others get 0."""
 
     def __init__(self, with_bbox=False, **kwargs):
         self.with_bbox = with_bbox
 
     def __call__(self, sample, info):
-        if sample["type"] != "SemanticKITTIDataset":
+        if sample["type"] == "SemanticKITTIDataset":
+            label_path = (info["path"].replace("velodyne", "labels")
+                          .replace(".bin", ".label"))
+            raw = np.fromfile(label_path, dtype=np.uint32).reshape(-1)
+            sem = (raw & 0xFFFF).astype(np.int64)
+            inst = (raw >> 16).astype(np.int64)
+            sample["annotations"] = {
+                "point_sem_labels": info["remap_lut"][sem].astype(np.int32),
+                "point_inst_labels": inst.astype(np.int32)}
+        elif sample["type"] == "SemanticNuscDataset":
+            raw = np.fromfile(info["lidarseg_path"],
+                              dtype=np.uint8).reshape(-1)
+            sem = info["remap_lut"][raw.astype(np.int64)].astype(np.int32)
+            n = len(sample["points"])
+            if n > len(sem):
+                sem = np.concatenate([sem, np.zeros(n - len(sem), np.int32)])
+            sample["annotations"] = {"point_sem_labels": sem,
+                                     "point_inst_labels": np.zeros(
+                                         n, np.int32)}
+        else:
             raise _not_ported(sample["type"])
-        label_path = (info["path"].replace("velodyne", "labels")
-                      .replace(".bin", ".label"))
-        raw = np.fromfile(label_path, dtype=np.uint32).reshape(-1)
-        sem = (raw & 0xFFFF).astype(np.int64)
-        inst = (raw >> 16).astype(np.int64)
-        sample["annotations"] = {
-            "point_sem_labels": info["remap_lut"][sem].astype(np.int32),
-            "point_inst_labels": inst.astype(np.int32)}
         return sample, info
 
 

@@ -1,13 +1,17 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels and its host C
+helpers.
 
-Each source under ``lidarseg3d_torch/csrc/`` is compiled by ``nvcc`` for
-Hopper (``sm_90a``) into its own shared library with a plain C interface
-and loaded with ``ctypes``; no PyTorch headers are involved, so a build
-takes seconds. Libraries land in ``lidarseg3d_torch/build/`` (listed in
-``.gitignore``) under a name that carries a hash of the source and of the
-shared headers (``csrc/*.cuh``), so an edited source is rebuilt and an
-unchanged one is reused. ``build()``
-starts one ``nvcc`` per missing library, all at once.
+Each CUDA source under ``lidarseg3d_torch/csrc/`` (``SOURCES``) is
+compiled by ``nvcc`` for Hopper (``sm_90a``) into its own shared library
+with a plain C interface and loaded with ``ctypes``; no PyTorch headers
+are involved, so a build takes seconds. The host C sources
+(``HOST_SOURCES``: the JPEG entropy coder) are compiled the same way by
+the system C compiler (``cc``). Libraries land in
+``lidarseg3d_torch/build/`` (listed in ``.gitignore``) under a name that
+carries a hash of the source, of the shared headers (``csrc/*.cuh``, for
+the CUDA sources) and of the flags, so an edited source is rebuilt and an
+unchanged one is reused. ``build()`` starts one compiler per missing
+library, all at once.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -33,6 +37,8 @@ SOURCES = {
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HOST_SOURCES = {"jpeg_huffman": "jpeg_huffman.c"}
+CC_FLAGS = ["-std=c99", "-O2", "-shared", "-fPIC"]
 
 _libs = {}
 build_logs = {}
@@ -49,18 +55,35 @@ def _nvcc():
     return path
 
 
+def _cc():
+    path = shutil.which("cc") or shutil.which("gcc")
+    if path is None:
+        raise RuntimeError("no C compiler (cc) found: the host C helpers of "
+                           "lidarseg3d_torch are built at first use")
+    return path
+
+
+def _command(name, out):
+    if name in HOST_SOURCES:
+        return [_cc(), *CC_FLAGS, "-o", out, str(CSRC / HOST_SOURCES[name])]
+    return [_nvcc(), *NVCC_FLAGS, "-o", out, str(CSRC / SOURCES[name])]
+
+
 def library_path(name):
-    src = (CSRC / SOURCES[name]).read_bytes()
-    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    if name in HOST_SOURCES:
+        src, flags = (CSRC / HOST_SOURCES[name]).read_bytes(), CC_FLAGS
+    else:
+        src, flags = (CSRC / SOURCES[name]).read_bytes(), NVCC_FLAGS
+        src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     return BUILD / f"lib{name}-{digest[:16]}.so"
 
 
 def build(names=None):
-    """Compile every missing library among ``names`` (all by default) in
-    parallel; returns the wall seconds spent. Raises with the compiler's
-    output if any build fails."""
-    names = list(SOURCES) if names is None else list(names)
+    """Compile every missing library among ``names`` (every CUDA and host
+    source by default) in parallel; returns the wall seconds spent. Raises
+    with the compiler's output if any build fails."""
+    names = [*SOURCES, *HOST_SOURCES] if names is None else list(names)
     BUILD.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
@@ -70,8 +93,8 @@ def build(names=None):
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / SOURCES[name])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        procs[name] = (subprocess.Popen(_command(name, tmp),
+                                        stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
     failed = []
@@ -79,19 +102,20 @@ def build(names=None):
         log, _ = proc.communicate()
         build_logs[name] = log
         if proc.returncode != 0:
-            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
+            failed.append(f"--- {name} (exit {proc.returncode})\n{log}")
             os.unlink(tmp)
         else:
             os.replace(tmp, out)
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise RuntimeError("library build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
 
 
-def load(name, signatures):
+def load(name, signatures, restype=ctypes.c_int):
     """ctypes handle of library ``name``, building it on first use.
     ``signatures`` maps each C function to its argtypes; every function
-    returns the launch's cudaError_t as an int."""
+    returns ``restype`` (a kernel's: the launch's cudaError_t as an
+    int)."""
     lib = _libs.get(name)
     if lib is None:
         build([name])
@@ -99,7 +123,7 @@ def load(name, signatures):
         for fn, argtypes in signatures.items():
             f = getattr(lib, fn)
             f.argtypes = argtypes
-            f.restype = ctypes.c_int
+            f.restype = restype
         _libs[name] = lib
     return lib
 

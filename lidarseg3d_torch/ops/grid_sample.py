@@ -3,6 +3,10 @@ lidarseg3d_tpu/ops/grid_sample.py:13 sample_points_cuv).
 
 The camera index is an exact integer (align_corners=True on the camera
 axis), so each point gathers its 4 bilinear corners from its camera's map.
+A point outside every camera (valid column 0) carries cam_id -100 from the
+pipeline, far outside the cameras: its index is clamped into them before
+the gather and its result zeroed. The JAX package gathers it out of
+bounds, which gives NaN there (ROADMAP §C, reference fault 7).
 """
 
 import torch
@@ -17,7 +21,8 @@ def sample_points_cuv(features, points_cuv):
     valid = points_cuv[..., 0] > 0.5
     if num_cam > 1:
         cam = torch.round((points_cuv[..., 1] + 1.0) * 0.5
-                          * (num_cam - 1)).to(torch.int64)
+                          * (num_cam - 1)).to(torch.int64).clamp(0,
+                                                                 num_cam - 1)
     else:
         cam = torch.zeros(points_cuv.shape[:2], dtype=torch.int64,
                           device=points_cuv.device)

@@ -11,11 +11,13 @@ The semnusc bench shape (``SEMNUSC``, the JAX package's bench.py:155-175):
 the 0.1 m nuScenes grid (Z, Y, X) = (41, 1024, 1024), six cameras at
 640x960, V=N=40960, 17 classes, and the image branch in bf16.
 
-``write_semantickitti_tree`` writes a seeded dataset on disk in
-SemanticKITTI's layout, and ``write_eval_config`` a config whose splits
-read it, for the evaluation and training entry points.
+``write_semantickitti_tree`` and ``write_semnusc_tree`` write a seeded
+dataset on disk in SemanticKITTI's and nuScenes-lidarseg's layouts, and
+``write_eval_config`` a config whose splits read it, for the evaluation
+and training entry points.
 """
 
+import json
 import os
 
 import numpy as np
@@ -23,6 +25,8 @@ import torch
 
 from .core.voxelize import VoxelGenerator, encode_compact_value_labels
 from .datasets.batching import collate_segnet
+from .datasets.nuscenes.metadata import CAM_CHANS
+from .datasets.pipelines.jpeg_read import write_jpeg_bgr
 from .datasets.pipelines.png import write_png_bgr
 
 PCR = (-25.6, -25.6, -4.0, 25.6, 25.6, 2.0)
@@ -276,16 +280,182 @@ def write_semantickitti_tree(root, sequences=("08",), frames=4,
                               _kitti_image(rng, *image_hw))
 
 
+# nuScenes' rig: HDL-32E beam elevations (degrees), LIDAR_TOP's mount
+# (translation on the ego, yaw), and each camera's mount and intrinsics
+# (the published calibration's values, rounded; camera axes x right, y
+# down, z forward)
+HDL32_ELEVATION = np.linspace(10.67, -30.67, 32)
+NUSC_LIDAR = dict(translation=(0.94, 0.0, 1.84), yaw=-90.0)
+NUSC_CAMS = {
+    "CAM_FRONT": ((1.70, 0.00, 1.51), 0.0, (1266.4, 816.3, 491.5)),
+    "CAM_FRONT_RIGHT": ((1.55, -0.49, 1.49), -55.0, (1260.8, 807.9, 495.3)),
+    "CAM_BACK_RIGHT": ((1.03, -0.48, 1.57), -110.0, (1256.7, 792.1, 492.8)),
+    "CAM_BACK": ((0.03, 0.00, 1.58), 180.0, (809.2, 829.2, 481.8)),
+    "CAM_BACK_LEFT": ((1.05, 0.48, 1.57), 110.0, (1256.7, 817.8, 451.9)),
+    "CAM_FRONT_LEFT": ((1.52, 0.49, 1.51), 55.0, (1272.6, 826.6, 479.8)),
+}
+# raw lidarseg ids (0-31): ground classes, and what stands on the ground
+NUSC_GROUND_IDS = (24, 25, 26, 27)
+NUSC_STRUCTURE_IDS = (0, 1, 2, 9, 12, 14, 15, 17, 18, 21, 22, 23, 28, 30)
+
+
+def _quaternion(R):
+    """[w, x, y, z] of a 3x3 rotation matrix (w >= 0)."""
+    w = np.sqrt(max(0.0, 1.0 + R[0, 0] + R[1, 1] + R[2, 2])) / 2
+    x = np.sqrt(max(0.0, 1.0 + R[0, 0] - R[1, 1] - R[2, 2])) / 2
+    y = np.sqrt(max(0.0, 1.0 - R[0, 0] + R[1, 1] - R[2, 2])) / 2
+    z = np.sqrt(max(0.0, 1.0 - R[0, 0] - R[1, 1] + R[2, 2])) / 2
+    x = np.copysign(x, R[2, 1] - R[1, 2])
+    y = np.copysign(y, R[0, 2] - R[2, 0])
+    z = np.copysign(z, R[1, 0] - R[0, 1])
+    return [float(w), float(x), float(y), float(z)]
+
+
+def _yaw_quaternion(deg):
+    h = np.deg2rad(deg) / 2
+    return [float(np.cos(h)), 0.0, 0.0, float(np.sin(h))]
+
+
+def _camera_quaternion(yaw):
+    """Rotation camera -> ego of a camera looking along ``yaw`` degrees."""
+    a = np.deg2rad(yaw)
+    fwd = np.array([np.cos(a), np.sin(a), 0.0])
+    right = np.array([np.sin(a), -np.cos(a), 0.0])
+    return _quaternion(np.stack([right, [0.0, 0.0, -1.0], fwd], 1))
+
+
+def _nusc_scan(rng, n, max_range):
+    """n returns of a 32-beam scanner at LIDAR_TOP's height: each beam hits
+    the ground or, before it, the wall of its azimuth sector. -> float32
+    [n, 5] rows (x, y, z, intensity, ring) and uint8 raw lidarseg ids."""
+    sectors = 240
+    beam = rng.integers(0, 32, n)
+    el = np.deg2rad(HDL32_ELEVATION[beam] + rng.normal(0.0, 0.05, n))
+    az = rng.uniform(-np.pi, np.pi, n)
+    sec = ((az + np.pi) / (2 * np.pi) * sectors).astype(np.int64) % sectors
+    wall = rng.uniform(0.1, 0.98, sectors) * max_range
+    ground_id = rng.choice(NUSC_GROUND_IDS, sectors)
+    wall_id = rng.choice(NUSC_STRUCTURE_IDS, sectors)
+    height = NUSC_LIDAR["translation"][2]
+    with np.errstate(divide="ignore"):
+        d_ground = np.where(el < 0, height / np.tan(-el), np.inf)
+    on_ground = d_ground < wall[sec]
+    d = np.where(on_ground, d_ground, wall[sec]) + rng.normal(0, 0.02, n)
+    z = np.where(on_ground, -height, d * np.tan(el))
+    pts = np.stack([d * np.cos(az), d * np.sin(az),
+                    z + rng.normal(0, 0.02, n), rng.uniform(0, 100, n),
+                    beam], 1).astype(np.float32)
+    sem = np.where(on_ground, ground_id[sec], wall_id[sec]).astype(np.uint8)
+    return pts, sem
+
+
+def write_semnusc_tree(root, scenes=("scene-0003",), samples=2,
+                       points=(30000, 34688), seed=0, cams=CAM_CHANS,
+                       max_range=50.0, quality=95,
+                       version="v1.0-trainval"):
+    """Write a seeded nuScenes-lidarseg tree under ``root``: the tables
+    (``sample``, ``sample_data``, ``scene``, ``calibrated_sensor``,
+    ``ego_pose``, ``sensor``, ``lidarseg``; ``sample_annotation``,
+    ``instance`` and ``category`` empty) in ``root/version``, and per
+    sample a LIDAR_TOP ``samples/LIDAR_TOP/*.pcd.bin`` scan (float32 x, y,
+    z, intensity, ring; ``points`` returns, or an inclusive (low, high)
+    range to draw the count from, of a 32-beam scanner within
+    ``max_range`` m), its uint8 ``lidarseg/version/*_lidarseg.bin`` file
+    over the 32 raw classes, and a 1600x900 JPEG (``write_jpeg_bgr`` at
+    ``quality``) for each camera channel in ``cams``. ``scenes`` names
+    scenes of the official lists (their split decides train or val),
+    each of ``samples`` key frames 0.5 s apart along the ego's path;
+    each key frame's LIDAR_TOP record links to the previous one as its
+    sweep. The cameras keep nuScenes' mounts and intrinsics, so each sees
+    a share of the points."""
+    rng = np.random.default_rng(seed)
+    lo, hi = (points, points) if np.isscalar(points) else points
+    for sub in ["samples/LIDAR_TOP", f"lidarseg/{version}", version] + [
+            f"samples/{c}" for c in cams]:
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    # the annotation tables stay empty: no detection boxes
+    tables = {t: [] for t in ("sample", "sample_data", "scene",
+                              "calibrated_sensor", "ego_pose", "sensor",
+                              "lidarseg", "sample_annotation", "instance",
+                              "category")}
+    tables["sensor"].append(dict(token="sensor_LIDAR_TOP",
+                                 channel="LIDAR_TOP", modality="lidar"))
+    tables["calibrated_sensor"].append(dict(
+        token="cs_LIDAR_TOP", sensor_token="sensor_LIDAR_TOP",
+        translation=list(NUSC_LIDAR["translation"]),
+        rotation=_yaw_quaternion(NUSC_LIDAR["yaw"]), camera_intrinsic=[]))
+    for c in cams:
+        t, yaw, (f, cx, cy) = NUSC_CAMS[c]
+        tables["sensor"].append(dict(token=f"sensor_{c}", channel=c,
+                                     modality="camera"))
+        tables["calibrated_sensor"].append(dict(
+            token=f"cs_{c}", sensor_token=f"sensor_{c}", translation=list(t),
+            rotation=_camera_quaternion(yaw),
+            camera_intrinsic=[[f, 0.0, cx], [0.0, f, cy], [0.0, 0.0, 1.0]]))
+    for si, name in enumerate(scenes):
+        toks = [f"{name}_s{i}" for i in range(samples)]
+        heading = rng.uniform(-180.0, 180.0)
+        start = rng.uniform(-500.0, 500.0, 2)
+        for i, tok in enumerate(toks):
+            stamp = (si + 1) * 10**8 + i * 500000
+            a = np.deg2rad(heading)
+            pos = start + 2.5 * i * np.array([np.cos(a), np.sin(a)])
+            tables["ego_pose"].append(dict(
+                token=f"ep_{tok}", timestamp=stamp,
+                translation=[float(pos[0]), float(pos[1]), 0.0],
+                rotation=_yaw_quaternion(heading)))
+            lidar_sd = f"sd_{tok}_LIDAR_TOP"
+            n = int(rng.integers(lo, hi + 1))
+            pts, sem = _nusc_scan(rng, n, max_range)
+            lidar_file = f"samples/LIDAR_TOP/{tok}.pcd.bin"
+            seg_file = f"lidarseg/{version}/{lidar_sd}_lidarseg.bin"
+            pts.tofile(os.path.join(root, lidar_file))
+            sem.tofile(os.path.join(root, seg_file))
+            tables["lidarseg"].append(dict(token=f"seg_{tok}",
+                                           sample_data_token=lidar_sd,
+                                           filename=seg_file))
+            data = {"LIDAR_TOP": lidar_sd}
+            for c in ["LIDAR_TOP"] + list(cams):
+                sd = f"sd_{tok}_{c}"
+                fname = lidar_file if c == "LIDAR_TOP" \
+                    else f"samples/{c}/{tok}.jpg"
+                if c != "LIDAR_TOP":
+                    write_jpeg_bgr(os.path.join(root, fname),
+                                   _kitti_image(rng, 900, 1600), quality)
+                    data[c] = sd
+                tables["sample_data"].append(dict(
+                    token=sd, sample_token=tok, filename=fname,
+                    calibrated_sensor_token=f"cs_{c}",
+                    ego_pose_token=f"ep_{tok}", timestamp=stamp,
+                    is_key_frame=True,
+                    prev=f"sd_{toks[i - 1]}_{c}" if i else "",
+                    next=f"sd_{toks[i + 1]}_{c}" if i + 1 < samples else ""))
+            tables["sample"].append(dict(
+                token=tok, timestamp=stamp, scene_token=f"scene_{name}",
+                data=data, prev=toks[i - 1] if i else "",
+                next=toks[i + 1] if i + 1 < samples else ""))
+        tables["scene"].append(dict(
+            token=f"scene_{name}", name=name, nbr_samples=samples,
+            first_sample_token=toks[0], last_sample_token=toks[-1]))
+    for t, rows in tables.items():
+        with open(os.path.join(root, version, f"{t}.json"), "w") as f:
+            json.dump(rows, f)
+
+
 def write_eval_config(path, config, data_root, work_dir=None):
     """Write to ``path`` a copy of the config file ``config`` whose data
     splits read the tree at ``data_root`` (as ``write_semantickitti_tree``
-    writes it), with the image backbone's ``frozen_stages=3`` (as every
-    published MSeg3D config sets it) and, if given, ``work_dir``. Returns
-    ``path``."""
+    or ``write_semnusc_tree`` writes it; a split's ``info_path`` keeps its
+    file name under ``data_root``), with the image backbone's
+    ``frozen_stages=3`` (as every published MSeg3D config sets it) and,
+    if given, ``work_dir``. Returns ``path``."""
     with open(config) as f:
         text = f.read()
     text += (f"\nfor _split in ('train', 'val', 'test'):\n"
              f"    data[_split]['root_path'] = {data_root!r}\n"
+             "    if 'info_path' in data[_split]:\n"
+             f"        data[_split]['info_path'] = {data_root!r} + '/' + "
+             "data[_split]['info_path'].rsplit('/', 1)[-1]\n"
              "model['img_backbone']['frozen_stages'] = 3\n")
     if work_dir is not None:
         text += f"work_dir = {work_dir!r}\n"

@@ -1,0 +1,70 @@
+"""Dataset info files for the port (the port's counterpart of
+tools/create_data.py).
+
+    python -m lidarseg3d_torch.tools.create_data semanticnusc --root R
+        [--version v1.0-trainval] [--nsweeps 1] [--cams] [--out_dir D]
+    python -m lidarseg3d_torch.tools.create_data {semanticnusc,
+        semantickitti} --root R --dry-data [--version V] [--cams]
+
+``semanticnusc`` writes ``infos_train_NNsweeps_segdet.pkl`` and
+``infos_val_NNsweeps_segdet.pkl`` into ``--out_dir`` (the root by
+default) through ``datasets.nuscenes.create_nuscenes_seg_infos``;
+``--cams`` adds the six cameras' calibration and image paths (MSeg3D).
+``--dry-data`` validates the tree (``datasets/validate.py``) and writes
+nothing; SemanticKITTI needs no info files, so it takes ``--dry-data``
+only (``--cams`` then checks its camera frames). The Waymo choices are not
+ported yet and raise.
+"""
+
+import argparse
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Dataset info files")
+    p.add_argument("dataset", choices=["semanticnusc", "semantickitti",
+                                       "semanticwaymo", "waymo_gt_database"])
+    p.add_argument("--root", required=True)
+    p.add_argument("--version", default="v1.0-trainval")
+    p.add_argument("--nsweeps", type=int, default=1)
+    p.add_argument("--cams", action="store_true",
+                   help="include the six cameras' calibration and paths")
+    p.add_argument("--out_dir", default=None)
+    p.add_argument("--dry-data", action="store_true",
+                   help="validate the mounted raw tree and exit")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    """Run the tool; returns the summary of ``--dry-data`` or the paths
+    of the info files written."""
+    args = parse_args(argv)
+    if args.dataset in ("semanticwaymo", "waymo_gt_database"):
+        raise NotImplementedError(f"{args.dataset}: the Waymo datasets are "
+                                  "not ported to lidarseg3d_torch yet "
+                                  "(ROADMAP A8)")
+    if args.dataset == "semantickitti" and not args.dry_data:
+        raise SystemExit("semantickitti reads raw sequences (no info "
+                         "files); only --dry-data applies")
+    if args.dry_data:
+        from ..datasets import validate
+
+        if args.dataset == "semantickitti":
+            rep = validate.validate_semantickitti(args.root,
+                                                  use_img=args.cams)
+        else:
+            rep = validate.validate_semanticnusc(args.root,
+                                                 version=args.version)
+        print(f"dry-data OK: {rep}")
+        return rep
+    from ..datasets.nuscenes.common import create_nuscenes_seg_infos
+    from ..datasets.nuscenes.metadata import CAM_CHANS
+
+    paths = create_nuscenes_seg_infos(
+        args.root, version=args.version, nsweeps=args.nsweeps,
+        cam_chans=CAM_CHANS if args.cams else None, out_dir=args.out_dir)
+    print("\n".join(f"wrote {p}" for p in paths))
+    return paths
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,4 @@
-"""Evaluate a trained segmentor with the port: mIoU on val, .label
+"""Evaluate a trained segmentor with the port: mIoU on val, the dataset's
 submission files on test (the port's counterpart of tools/test.py).
 
     python -m lidarseg3d_torch.tools.test CONFIG --checkpoint WORK_DIR[/epoch_N]
@@ -9,8 +9,11 @@ The model is built from the config, its weights and BN statistics loaded
 from a checkpoint of ``apis.train.save_checkpoint`` (``WORK_DIR`` reads
 ``latest.txt``), and the config's val (or test) pipeline runs through the
 port's dataset and loader into ``apis.eval.run_eval``; the mIoU and each
-class's IoU are printed. The device is ``cuda`` unless ``--device cpu`` is
-given, and the tool raises when there is no card. Not ported yet:
+class's IoU are printed (``--testset`` writes the dataset's submission
+files under the work dir instead). The loader takes the config's
+``worker_mode``, else ``shm`` workers on a host with more than two CPUs.
+The device is ``cuda`` unless ``--device cpu`` is given, and the tool
+raises when there is no card. Not ported yet:
 test-time augmentation (``--tta`` raises), the detection models, and
 multi-process runs.
 """
@@ -67,7 +70,7 @@ def main(argv=None):
                                   "are not ported to lidarseg3d_torch yet")
     from ..apis.eval import evaluate_dataset, run_eval
     from ..apis.train import TrainState, load_checkpoint
-    from ..datasets import SegDataLoader, build_dataset
+    from ..datasets import SegDataLoader, build_dataset, default_worker_mode
     from ..models import build_detector
     from ..utils.config import Config
     from ..utils.device import resolve_device
@@ -86,7 +89,7 @@ def main(argv=None):
         max_voxels=cap.get("max_voxels", 160000),
         max_points=cap.get("max_points", 140000), shuffle=False,
         num_workers=cfg.data.get("workers_per_gpu", 4),
-        worker_mode=cfg.data.get("worker_mode", "thread"), drop_last=False)
+        worker_mode=default_worker_mode(cfg.data), drop_last=False)
 
     model_cfg = cfg.model.to_dict()
     for key in ("train_cfg", "test_cfg"):

@@ -8,9 +8,9 @@ tools/train.py).
 
 The model is built from the config (seeded with ``--seed``), the config's
 train split runs through the port's dataset, train pipeline and loader
-(thread workers unless the config names another mode; ``shm`` is not
-ported and raises) into ``apis.train.train_segmentor``: OneCycle over
-every step, the config's gradient clip, a log line every
+(the config's ``worker_mode``, else ``shm`` workers on a host with more
+than two CPUs, as in the JAX tool) into ``apis.train.train_segmentor``:
+OneCycle over every step, the config's gradient clip, a log line every
 ``log_config.interval`` steps (also written to ``WORK_DIR/train.log``), a
 checkpoint ``WORK_DIR/epoch_N`` after each epoch and ``latest.txt``.
 ``--resume_from`` alone resumes from ``latest.txt``, ``--resume_from N``
@@ -115,7 +115,7 @@ def main(argv=None, hooks=(), timings=None):
     _refuse_unported(args)
     from ..apis.eval import evaluate_dataset, run_eval
     from ..apis.train import train_segmentor
-    from ..datasets import SegDataLoader, build_dataset
+    from ..datasets import SegDataLoader, build_dataset, default_worker_mode
     from ..models import build_detector
     from ..utils.config import Config
     from ..utils.device import resolve_device
@@ -151,7 +151,7 @@ def main(argv=None, hooks=(), timings=None):
             max_voxels=cap.get("max_voxels", 160000),
             max_points=cap.get("max_points", 140000), shuffle=True,
             seed=seed, num_workers=cfg.data.get("workers_per_gpu", 4),
-            worker_mode=cfg.data.get("worker_mode", "thread"),
+            worker_mode=default_worker_mode(cfg.data),
             ignore_label=cfg.get("ignore_label", 0),
             # a capacity overflow drops rows and changes the gradients
             on_overflow=cfg.get("on_overflow", "error"))

@@ -8,8 +8,8 @@ configs/tests/mini_semkitti_mseg3d.py.
   the tree's own files; it refuses 16-bit and grey PNGs.
 - The bilinear resize (cv2's fixed point in numpy) equals
   ``cv2.resize(..., INTER_LINEAR)`` exactly (tolerance 0 uint8 steps),
-  at KITTI's 1241x376 -> 1280x384 and at smaller up- and downscales; the
-  nearest resize equals INTER_NEAREST.
+  at KITTI's 1241x376 -> 1280x384, at nuScenes' 1600x900 -> 960x640 and
+  at smaller up- and downscales; the nearest resize equals INTER_NEAREST.
 - For every frame, the port's ``dataset[i]`` equals the JAX package's key
   by key, exactly (points, voxels, coordinates, num_points_per_voxel,
   points_cuv and the normalized images: both sides normalize the same
@@ -116,7 +116,8 @@ def test_png_reader_equals_cv2_imread(tmp_path, tree):
 @pytest.mark.parametrize("src,dst", [((376, 1241), (384, 1280)),
                                      ((64, 128), (64, 128)),
                                      ((37, 101), (64, 128)),
-                                     ((376, 1241), (64, 128))])
+                                     ((376, 1241), (64, 128)),
+                                     ((900, 1600), (640, 960))])
 def test_resize_equals_cv2(src, dst):
     rng = np.random.default_rng(sum(src) + sum(dst))
     img = rng.integers(0, 256, src + (3,), dtype=np.uint8)

@@ -28,7 +28,8 @@ frames.
   (dropout on); the resumed run starts at global step 2, and the learning
   rate there equals the JAX ``lr_fn``'s (float32) within 1e-6 relative.
 - The tool from the command line with ``--device cpu --validate`` writes
-  its checkpoints and prints an mIoU; its unported options raise."""
+  its checkpoints and prints an mIoU; its unported options raise, and so
+  does a frame that its shm workers cannot read."""
 
 import copy
 import os
@@ -363,11 +364,22 @@ def test_existing_pretrained_raises_and_missing_one_warns(setup, tmp_path,
 
 
 def test_shm_workers_and_a_missing_card_raise(setup, tmp_path):
-    cfg = tmp_path / "shm.py"
-    cfg.write_text(open(setup["cfg_path"]).read()
-                   + "data['worker_mode'] = 'shm'\n")
-    with pytest.raises(NotImplementedError, match="shm"):
-        tool.main([str(cfg), "--device", "cpu", "--work_dir",
+    """Through the tool, the loader's shm workers surface the error of a
+    frame they cannot read (frame 1: in the epoch's second batch, after
+    the batch the loader builds itself for the slot layout)."""
+    import shutil
+
+    root = str(tmp_path / "sequences")
+    shutil.copytree(setup["cfg"].data.train.root_path, root)
+    order = np.random.default_rng(0).permutation(4)  # the sampler's epoch 0
+    assert 1 in order[2:]
+    os.remove(os.path.join(root, "00", "labels", "000001.label"))
+    cfg = write_eval_config(str(tmp_path / "shm.py"), MINI_CONFIG, root)
+    with open(cfg, "a") as f:
+        f.write("data['worker_mode'] = 'shm'\n"
+                "data['workers_per_gpu'] = 2\n")
+    with pytest.raises(RuntimeError, match="loader worker failed"):
+        tool.main([cfg, "--device", "cpu", "--work_dir",
                    str(tmp_path / "w")])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
