@@ -81,7 +81,7 @@ Phases (each fails loudly with a non-zero exit):
      (configs/semanticnusc/MSeg3D/semnusc_avgvfe_unetscn3d_hrnetw18_lr1en2_e12.py:
      0.1 m grid 41x1024x1024, capacity 40960 / 40960, six cameras,
      frozen_stages=3, with_cp, ACT_REMAT) at full width and depth as in
-     3d, on a seeded val scene of six key frames
+     3d, on a seeded val scene of four key frames
      (synthetic.write_semnusc_tree: 30,000-34,688 points, six 1600x900
      JPEGs each; infos and the --dry-data check by tools.create_data),
      through the entry point tools.test with the loader in shm mode; the
@@ -91,9 +91,27 @@ Phases (each fails loudly with a non-zero exit):
   3g. train-nu: the same config trained as in 3e at its samples_per_gpu=3
      with with_cp and ACT_REMAT (87 forward + dX convs a step: 16 forward
      convs run again in the backward) and the loader in shm mode, on three
-     seeded train scenes of three key frames: 2 epochs of 2 steps and a
-     resume for a third; the checks and numbers of 3e, and the loader alone
-     in shm and in thread mode;
+     seeded train scenes of two key frames: 1 epoch of 2 steps and a
+     resume for a second; the checks and numbers of 3e (the loader's wait
+     per step, not the loader alone);
+  3h. sdseg-eval: the published SDSeg3D SemanticKITTI config
+     (configs/semantickitti/SDSeg3D/semkitti_transVFE_unetscn3d_batchloss_e10.py:
+     SegNet of TransVFE (three encoder layers), UNetSCN3D r=2 and the
+     batch-loss head; grid 41x1504x1504, capacity 160000 / 131072) at
+     full width as in 3d (BN calibrated on frame 0, tools.test with
+     --speed_test) on a seeded 10-frame sequence 08, then its _tta config
+     with --tta on a 6-frame one (four variant rows a frame, their softmax
+     merged); the checks of 3d (launches per frame, labels, spread, mIoU,
+     the device histogram without TTA, frame 0 card vs CPU with and without
+     TTA), no mini config;
+  3i. sdseg-train: the same config trained as in 3e at its
+     samples_per_gpu=4 (the only B=4 path; TransVFE's layers recomputed in
+     the backward), 2 epochs of 2 steps and a resume; per step 36 + 36 dX
+     convs (TransVFE's output needs a gradient) and 36 dW;
+  3j. sdseg-nu-tta: the published SDSeg3D nuScenes _tta config with --tta
+     (six variant rows a frame; grid 41x1024x1024, capacity 40960) on a
+     seeded val scene of four key frames, the checks of 3f without the
+     JPEG read;
   4. hold each kernel against its plain version on the card at each main
      path's shapes, from a real scan of that path: the rulebook conv in
      fp32 and bf16 (stage-1 subm, stage-1->2 strided, stage-4 subm; and as
@@ -117,9 +135,15 @@ Phases (each fails loudly with a non-zero exit):
      conv, dX and dW at its stage-1 shape and the merge on its stage-1 and
      stage-2 KeyTables; from a scan of eval-nu and a batch of train-nu
      (B=3), the merge on their stage-1 and stage-2 KeyTables, and at B=3
-     the conv, dX and dW at the stage-1 shape. The rulebook lookups: all
+     the conv, dX and dW at the stage-1 shape; from a batch of sdseg-train
+     (B=4), the input conv 16->32 forward and dX, dW 16->32 and 32->32,
+     the merge on its stage-1 and stage-2 KeyTables and the pack of its
+     stage-3 table (four rows in one launch), and the merge on the stage-1
+     KeyTable of one TTA frame of 3h (4 rows) and 3j (6 rows). The
+     rulebook lookups: all
      10 rulebooks of each path's structures (semkitti, train at B=2,
-     semnusc, eval, train entry at B=2, eval-nu, train-nu at B=3), each
+     semnusc, eval, train entry at B=2, eval-nu, train-nu at B=3,
+     sdseg-train at B=4), each
      exactly
      against its plain version and the path's own rulebook on both table
      kinds (the fused kernel on a RankTable; the front end, merge and
@@ -138,8 +162,9 @@ Phases (each fails loudly with a non-zero exit):
      per call (back-to-back calls, no synchronisation); the pack row also
      times torch.cumsum of the bitmap and the merge row
      torch.searchsorted, partial yardsticks that give the rank field only;
-  5. profile one scan of each inference path (the eval path included)
-     and one train step of each training path (device
+  5. profile one scan of each inference path (the eval paths included;
+     a TTA path's scan is one frame's variant rows) and one train step of
+     each training path (device
      busy share and the kernels that take the time), and the
      structures+rulebooks part of one scan of each inference path (its
      device kernels and launches beside the count before the fused
@@ -235,19 +260,41 @@ TRAIN_ENTRY = dict(frames=1, points=(120000, 125000), seed=1,
 # from tools.create_data --cams); its tables are (keys, keys, rank, rank)
 EVAL_NU = dict(config="configs/semanticnusc/MSeg3D/"
                "semnusc_avgvfe_unetscn3d_hrnetw18_lr1en2_e12.py",
-               scenes=("scene-0003",), samples=6, points=(30000, 34688),
+               scenes=("scene-0003",), samples=4, points=(30000, 34688),
                seed=2, ncls=17)
 # phase 3g: the same config trained through the entry point at its
 # samples_per_gpu=3 with the loader in shm mode (the tools' default on a
-# host with more than two CPUs) on three seeded train scenes of three key
-# frames: 2 epochs of 2 steps, then a resume for a third. Per step as in
+# host with more than two CPUs) on three seeded train scenes of two key
+# frames: 1 epoch of 2 steps, then a resume for a second. Per step as in
 # phase 3e, plus the forward convs of the encoder's four residual stacks
 # (2 blocks x 2 convs each) again in the backward under ACT_REMAT: 36 + 16
 # forward + 35 dX convs
 TRAIN_NU = dict(scenes=("scene-0001", "scene-0002", "scene-0041"),
-                samples=3, points=(30000, 34688), seed=3, epochs=2, steps=2,
+                samples=2, points=(30000, 34688), seed=3, epochs=1, steps=2,
                 per_step={**TRAIN_ENTRY["per_step"], "rulebook_conv": 87},
-                loader_modes=("shm", "thread"))
+                loader_modes=())
+# phases 3h-3j: SDSeg3D (SegNet: TransVFE of three layers, UNetSCN3D r=2,
+# the batch-loss head) at its published configs. 3h: the SemanticKITTI
+# config evaluated through the entry point on a seeded sequence 08, then
+# its _tta config with --tta (each frame four variant rows); 3i: the same
+# config trained at its samples_per_gpu=4, whose per-step launches are
+# phase 3e's but 36 + 36 dX convs (TransVFE's output needs a gradient, so
+# the input conv runs its dX too); 3j: the nuScenes _tta config with --tta
+# (six variant rows a frame) on a seeded val scene. Tables (keys, keys,
+# rank, rank) on every one
+SD_KITTI = "configs/semantickitti/SDSeg3D/semkitti_transVFE_unetscn3d_batchloss_e10"
+EVAL_SD = dict(config=SD_KITTI + ".py", frames=10, points=(120000, 125000),
+               seed=4, image_hw=(376, 1241), max_range=75.0, ncls=20)
+EVAL_SD_TTA = dict(EVAL_SD, config=SD_KITTI + "_tta.py", frames=6, seed=5,
+                   tta=True)
+TRAIN_SD = dict(TRAIN_ENTRY, seed=6, epochs=2, steps=2,
+                per_step={**TRAIN_ENTRY["per_step"], "rulebook_conv": 72})
+EVAL_SD_NU = dict(config="configs/semanticnusc/SDSeg3D/"
+                  "semnusc_transvfe_unetscn3d_batchloss_e48_tta.py",
+                  scenes=("scene-0003",), samples=4, points=(30000, 34688),
+                  seed=7, ncls=17, tta=True, cams=False)
+# frames the host pipeline is timed on, one at a time (phases 3d-3j)
+PIPELINE_FRAMES = 4
 # card vs CPU through the entry point (phase 3's limits)
 MIN_LABEL_AGREE, MAX_MIOU_POINTS = 0.999, 0.1
 # phase 3d's labels must spread: classes predicted besides the ignore class
@@ -332,6 +379,9 @@ def cuda_time(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+PROFILE_TRIES = 8
+
+
 def device_ms(fn, reps=10):
     """Mean device milliseconds per fn() call: the summed durations of the
     device activities fn starts (torch.profiler), without the host-side
@@ -342,12 +392,13 @@ def device_ms(fn, reps=10):
 
     fn()
     torch.cuda.synchronize()
-    # a session now and then drops device events: all of them (seen once in
-    # dozens of sessions on an H100) or some (0.57 against 0.92 ms for the
-    # same kernel). Dropped events only lower the sum, so two sessions
-    # with events are measured, up to four tried, and the larger sum kept
+    # a session now and then drops device events: all of them (2 to 6
+    # sessions of the ~1000 in a run of this script on an H100, up to
+    # three in a row) or some (0.57 against 0.92 ms for the same kernel).
+    # Dropped events only lower the sum, so two sessions with events are
+    # measured, up to PROFILE_TRIES tried, and the larger sum kept
     sums = []
-    for attempt in range(4):
+    for attempt in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -362,8 +413,9 @@ def device_ms(fn, reps=10):
         else:
             log(f"  profiler session {attempt + 1} recorded no device "
                 "activity")
+            time.sleep(0.2)
     raise SystemExit("profiler recorded device activity in fewer than 2 of "
-                     "4 sessions")
+                     f"{PROFILE_TRIES} sessions")
 
 
 def timings(fn, plain, library=None, plain_reps=20):
@@ -1208,6 +1260,7 @@ def kernel_checks(runs):
         del xb, xst, x32
 
         check_nusc_paths(report, runs, gen)
+        check_sdseg_paths(report, runs, gen)
 
         # the 0.1 m SemanticKITTI grid: 41 x 1504 x (1504 + 2) cells, with
         # the scan's voxels spread over it key-sorted
@@ -1274,6 +1327,57 @@ def check_nusc_paths(report, runs, gen):
                         f"{Z * Y * (X + 2)} cells", yb[f"t{i}"],
                         subm_stream(yb, i))
         del yb, yst
+
+
+def check_sdseg_paths(report, runs, gen):
+    """Phase 4's rows of the SDSeg3D paths (phases 3h-3j): from a real
+    B=4 batch of sdseg-train, the input conv 16->32 (TransVFE's features)
+    forward and as dX, the dW of it and of the stage-1 32->32 conv, every
+    rulebook on both table kinds, the merge on its stage-1 and stage-2
+    KeyTables and the pack of its stage-3 RankTable (four rows in one
+    launch); from one TTA frame of sdseg-eval (4 rows) and sdseg-nu (6
+    rows), the merge on the stage-1 KeyTable."""
+    import torch
+    from lidarseg3d_torch.ops import coords as co
+
+    model, ex = runs["sd_train"]["model"], runs["sd_train"]["ex0"]
+    with torch.no_grad():
+        st = model.lidar_input(ex)
+    books = model.backbone_mod.structures(st.structure)
+    B, V = st.features.shape[:2]
+    log("  sd_train stage voxels: " + " ".join(
+        f"s{i}={books[f's{i}'].num_voxels.tolist()}/"
+        f"{books[f's{i}'].capacity}" for i in range(1, 5)))
+    g32 = torch.rand(B, V, 32, generator=gen).to(DEV)
+    check_conv(report, f"sdseg subm B={B} V={V}", st.features,
+               books["subm1"], 16, 32, gen)
+    check_conv(report, f"dX of subm 16->32 sdseg B={B} V={V}", g32,
+               books["subm1"], 32, 16, gen, dx=True)
+    check_dw(report, f"sdseg subm B={B} V={V}", st.features, books["subm1"],
+             16, 32, gen)
+    check_dw(report, f"sdseg subm B={B} V={V}", g32, books["subm1"], 32, 32,
+             gen)
+    del g32
+    check_path_rulebooks(report, "sd_train", books)
+    for i in (1, 2):
+        Z, Y, X = books[f"s{i}"].spatial_shape
+        check_merge(report, f"sd_train stage-{i} subm B={B} "
+                    f"{Z * Y * (X + 2)} cells", books[f"t{i}"],
+                    subm_stream(books, i))
+    s3 = books["s3"]
+    act3 = co.activity(s3.coords, s3.num_voxels, s3.spatial_shape)
+    nce3 = act3.shape[1] - 1
+    check_pack(report, f"sd_train stage-3 B={B} {nce3} cells", act3, nce3)
+    del books, st, act3
+    for name in ("sd_eval_tta", "sd_nu_tta"):
+        m, x = runs[name]["model"], runs[name]["ex0"]
+        with torch.inference_mode():
+            b = m.backbone_mod.structures(m.lidar_input(x).structure)
+            Z, Y, X = b["s1"].spatial_shape
+            check_merge(report, f"{name} stage-1 subm B={b['s1'].batch_size}"
+                        f" (TTA rows) {Z * Y * (X + 2)} cells", b["t1"],
+                        subm_stream(b, 1))
+        del b
 
 
 def check_outputs(ret, pred, N, ncls):
@@ -1818,12 +1922,13 @@ def host_pipeline_ms(dataset, cap):
     """Host milliseconds per frame of each stage of the dataset's pipeline
     (val or train, as its test_mode says; frame i draws from a generator
     seeded with i) and of the collate, one frame at a time on one
-    thread."""
+    thread, over the dataset's first PIPELINE_FRAMES frames."""
     import numpy as np
     from lidarseg3d_torch.datasets import collate_segnet
 
     ms = {}
-    for i in range(len(dataset)):
+    n = min(len(dataset), PIPELINE_FRAMES)
+    for i in range(n):
         info = dataset.load_infos(i)
         sample = {"mode": "val" if dataset.test_mode else "train",
                   "rng": np.random.default_rng(i),
@@ -1837,10 +1942,11 @@ def host_pipeline_ms(dataset, cap):
             k = type(t).__name__
             ms[k] = ms.get(k, 0.0) + (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
-        collate_segnet([sample], cap["max_voxels"], cap["max_points"])
+        collate_segnet(sample if isinstance(sample, list) else [sample],
+                       cap["max_voxels"], cap["max_points"])
         ms["collate"] = ms.get("collate", 0.0) + (time.perf_counter()
                                                   - t0) * 1e3
-    ms = {k: v / len(dataset) for k, v in ms.items()}
+    ms = {k: v / n for k, v in ms.items()}
     ms["total"] = sum(ms.values())
     return ms
 
@@ -1875,33 +1981,42 @@ def jpeg_read_ms(dataset):
                 bytes=len(data))
 
 
-def dataset_in(cfg, split, tmp):
+def dataset_in(cfg, split, tmp, tta=False):
     """The config's split as a dataset whose relative paths are taken
-    under ``tmp`` (where the tool runs)."""
+    under ``tmp`` (where the tool runs); with ``tta``, under the entry
+    point's --tta pipeline (a frame is the list of its variants)."""
     from lidarseg3d_torch.datasets import build_dataset
+    from lidarseg3d_torch.tools.test import tta_dataset_cfg
 
     d = cfg.data[split].to_dict()
     for k in ("root_path", "info_path"):
         if k in d:
             d[k] = os.path.join(tmp, d[k])
+    if tta:
+        d = tta_dataset_cfg(d, cfg.tta_cfg.to_dict())
     return build_dataset(d)
 
 
 def write_nusc_tree(tmp, cfg, spec):
     """A seeded nuScenes tree at the config's root path under ``tmp``, its
-    infos by the entry point tools.create_data (--cams) and its check
+    infos by the entry point tools.create_data (--cams, unless ``spec``
+    says the config reads no camera: then the tree has none) and its check
     (--dry-data); -> seconds the tree took to write."""
+    from lidarseg3d_torch.datasets.nuscenes.metadata import CAM_CHANS
     from lidarseg3d_torch.synthetic import write_semnusc_tree
     from lidarseg3d_torch.tools import create_data
 
     root = os.path.join(tmp, cfg.data.val.root_path)
     t0 = time.perf_counter()
+    cams = spec.get("cams", True)
     write_semnusc_tree(root, scenes=spec["scenes"], samples=spec["samples"],
                        points=spec["points"], seed=spec["seed"],
-                       max_range=spec.get("max_range", 50.0))
+                       max_range=spec.get("max_range", 50.0),
+                       cams=CAM_CHANS if cams else ())
     secs = time.perf_counter() - t0
-    create_data.main(["semanticnusc", "--root", root, "--cams"])
-    create_data.main(["semanticnusc", "--root", root, "--dry-data"])
+    flag = ["--cams"] if cams else []
+    create_data.main(["semanticnusc", "--root", root, *flag])
+    create_data.main(["semanticnusc", "--root", root, "--dry-data", *flag])
     return secs
 
 
@@ -1978,11 +2093,13 @@ def write_frame0(e, cfg, tmp, one):
         pickle.dump(pickle.load(f)[:1], g)
 
 
-def published_frame_on_cpu(e, cfg_path, cfg, tmp, work, card, phase):
+def published_frame_on_cpu(e, cfg_path, cfg, tmp, work, card, phase,
+                           args=()):
     """Frame 0 of the eval tree, at its published size, through the entry
     point on the CPU (the kernels' plain versions) from the same
-    checkpoint: its labels agree with the card's on at least 99.9% of the
-    points and its mIoU is within 0.1 point of the card's on that frame."""
+    checkpoint and with the same ``args`` (--tta): its labels agree with
+    the card's on at least 99.9% of the points and its mIoU is within 0.1
+    point of the card's on that frame."""
     import shutil
     import tempfile
 
@@ -1996,7 +2113,8 @@ def published_frame_on_cpu(e, cfg_path, cfg, tmp, work, card, phase):
         try:
             t0 = time.perf_counter()
             cpu = tool.main([cfg_path, "--checkpoint", work, "--work_dir",
-                             os.path.join(one, "work"), "--device", "cpu"])
+                             os.path.join(one, "work"), "--device", "cpu",
+                             *args])
             secs = time.perf_counter() - t0
             ds = dataset_in(cfg, "val", one)
             mine = {t: card[t] for t in cpu["detections"]}
@@ -2010,8 +2128,8 @@ def published_frame_on_cpu(e, cfg_path, cfg, tmp, work, card, phase):
     share, total = label_agreement(mine, cpu["detections"])
     miou_cpu = cpu["results"]["results"]["mIoU"]
     log(f"  published config, frame 0 card vs CPU through the entry point "
-        f"({secs:.1f} s on the CPU): {total} points, labels agree "
-        f"{share:.6f}, mIoU {miou_card:.4f} / {miou_cpu:.4f} (limits "
+        f"{' '.join(args)} ({secs:.1f} s on the CPU): {total} points, "
+        f"labels agree {share:.6f}, mIoU {miou_card:.4f} / {miou_cpu:.4f} (limits "
         f"{MIN_LABEL_AGREE}, {MAX_MIOU_POINTS} point)")
     if total == 0 or share < MIN_LABEL_AGREE \
             or not abs(miou_card - miou_cpu) <= MAX_MIOU_POINTS:
@@ -2023,14 +2141,16 @@ def published_frame_on_cpu(e, cfg_path, cfg, tmp, work, card, phase):
 
 
 def run_eval_path(e=EVAL, phase="3d"):
-    """Phases 3d / 3f: a published config evaluated through the entry
-    point (lidarseg3d_torch.tools.test main, in-process, --speed_test) on
-    a seeded tree (SemanticKITTI: sequence 08 of PNG frames; nuScenes: a
-    val scene of JPEG cameras with the infos of tools.create_data), with
-    its checks; then the device histogram, the host pipeline's time,
-    frame 0 on the CPU through the same entry point, and (SemanticKITTI)
-    the card against the CPU on the mini config. Returns the run for
-    phases 4 and 5."""
+    """Phases 3d / 3f / 3h / 3j: a published config evaluated through the
+    entry point (lidarseg3d_torch.tools.test main, in-process,
+    --speed_test, and --tta where ``e`` says so) on a seeded tree
+    (SemanticKITTI: sequence 08 of PNG frames; nuScenes: a val scene of
+    JPEG cameras with the infos of tools.create_data), with its checks;
+    then the device histogram (without TTA), the host pipeline's time,
+    frame 0 on the CPU through the same entry point, and (where ``e``
+    names a mini config) the card against the CPU on it. Returns the run
+    for phases 4 and 5; under TTA its example is one frame's variant
+    rows."""
     import shutil
     import tempfile
 
@@ -2051,6 +2171,9 @@ def run_eval_path(e=EVAL, phase="3d"):
     cfg = Config.fromfile(cfg_path)
     cap, ishape = cfg.capacity, tool.input_shape_of(cfg)
     nusc = "scenes" in e
+    tta = bool(e.get("tta"))
+    args = ["--tta"] if tta else []
+    rows = int(cfg.tta_cfg.num_tta_tranforms) if tta else 1
     tmp = tempfile.mkdtemp(prefix=f"eval_{phase}_")
     try:
         # the config's paths are relative: the tree goes under tmp and the
@@ -2059,7 +2182,8 @@ def run_eval_path(e=EVAL, phase="3d"):
             secs = write_nusc_tree(tmp, cfg, e)
             what = (f"{len(e['scenes'])} val scene(s) of {e['samples']} "
                     f"key frames, {e['points'][0]}-{e['points'][1]} points "
-                    "and six 1600x900 JPEGs each")
+                    + ("and six 1600x900 JPEGs each" if e.get("cams", True)
+                       else "each, no camera"))
         else:
             t0 = time.perf_counter()
             write_semantickitti_tree(os.path.join(tmp, cfg.data_root),
@@ -2078,8 +2202,9 @@ def run_eval_path(e=EVAL, phase="3d"):
             f"x{cfg.data.workers_per_gpu}")
         ds = dataset_in(cfg, "val", tmp)
         model = build_detector(cfg.model.to_dict(), device=DEV, seed=0)
-        hb = model.img_backbone_mod
-        if hb.frozen_stages != 3 or not hb.frozen_parameters():
+        hb = getattr(model, "img_backbone_mod", None)
+        if hb is not None and (hb.frozen_stages != 3
+                               or not hb.frozen_parameters()):
             raise SystemExit("the published config's frozen_stages=3 is "
                              "not honoured")
         calibrate_bn(model, first_example(ds, cap, ishape, DEV))
@@ -2096,7 +2221,7 @@ def run_eval_path(e=EVAL, phase="3d"):
         os.chdir(tmp)
         try:
             out = tool.main([cfg_path, "--checkpoint", work, "--work_dir",
-                             work, "--speed_test", "--device", DEV])
+                             work, "--speed_test", "--device", DEV, *args])
         finally:
             os.chdir(cwd)
         torch.cuda.synchronize()
@@ -2127,10 +2252,12 @@ def run_eval_path(e=EVAL, phase="3d"):
         miou = out["results"]["results"]["mIoU"]
         if not (np.isfinite(miou) and 0.0 < miou <= 100.0):
             raise SystemExit(f"phase {phase}: mIoU {miou}")
-        lat = np.asarray(out["latencies"]) * 1e3
+        # speed_test's seconds are per batch row; a frame is `rows` rows
+        lat = np.asarray(out["latencies"]) * 1e3 * rows
         mid = lat[len(lat) // 3: 2 * len(lat) // 3]
         warm = lat[1:]
-        log(f"  per-scan ms (speed_test, CUDA events between two "
+        log(f"  per-{'frame (' + str(rows) + ' TTA rows)' if tta else 'scan'}"
+            f" ms (speed_test, CUDA events between two "
             f"synchronizations): {[round(float(v), 2) for v in lat]}; "
             f"after the first scan ({len(warm)}): mean {warm.mean():.2f}, "
             f"p50 {np.percentile(warm, 50):.2f}, min {warm.min():.2f}, max "
@@ -2141,7 +2268,8 @@ def run_eval_path(e=EVAL, phase="3d"):
         # the stage tables of one scan: kinds, cells, bytes
         state = out["state"]
         model = state.model
-        ex0 = first_example(ds, cap, ishape, DEV)
+        ex0 = first_example(dataset_in(cfg, "val", tmp, tta), cap, ishape,
+                            DEV)
         with torch.inference_mode():
             books = model.backbone_mod.structures(
                 model.lidar_input(ex0).structure)
@@ -2162,37 +2290,41 @@ def run_eval_path(e=EVAL, phase="3d"):
             "_lookup_gather_hbm route (0 launches)")
 
         # the device histogram against the host one of the predictions
-        with SegDataLoader(ds, 1, cap["max_voxels"], cap["max_points"],
-                           shuffle=False, drop_last=False,
-                           num_workers=2) as loader:
-            _, _, hist = ev.run_eval_device_hist(model, state, loader,
-                                                 ishape, ds, e["ncls"])
-        want = sum(fast_hist(p["pred_point_sem_labels"],
-                             ds.get_anno_for_eval(t)["point_sem_labels"],
-                             e["ncls"])
-                   for t, p in out["detections"].items())
-        if not np.array_equal(hist, want):
-            raise SystemExit("run_eval_device_hist's histogram differs from "
-                             "the host histogram of the predictions at "
-                             f"{int((hist != want).sum())} entries")
-        log(f"  run_eval_device_hist: [{e['ncls']}, {e['ncls']}] histogram "
-            f"of {int(hist.sum())} points equals the host histogram")
+        # (of the frames alone: no TTA merge on the device)
+        if not tta:
+            with SegDataLoader(ds, 1, cap["max_voxels"], cap["max_points"],
+                               shuffle=False, drop_last=False,
+                               num_workers=2) as loader:
+                _, _, hist = ev.run_eval_device_hist(model, state, loader,
+                                                     ishape, ds, e["ncls"])
+            want = sum(fast_hist(p["pred_point_sem_labels"],
+                                 ds.get_anno_for_eval(t)["point_sem_labels"],
+                                 e["ncls"])
+                       for t, p in out["detections"].items())
+            if not np.array_equal(hist, want):
+                raise SystemExit("run_eval_device_hist's histogram differs "
+                                 "from the host histogram of the predictions "
+                                 f"at {int((hist != want).sum())} entries")
+            log(f"  run_eval_device_hist: [{e['ncls']}, {e['ncls']}] "
+                f"histogram of {int(hist.sum())} points equals the host "
+                "histogram")
 
-        pipe = host_pipeline_ms(ds, cap)
+        pipe = host_pipeline_ms(dataset_in(cfg, "val", tmp, tta), cap)
         log("  host pipeline ms per frame (one thread): " + ", ".join(
             f"{k} {v:.2f}" for k, v in pipe.items()))
-        jpeg = jpeg_read_ms(ds) if nusc else None
+        jpeg = jpeg_read_ms(ds) if nusc and e.get("cams", True) else None
         if jpeg:
             log(f"  read_jpeg_bgr of one 1600x900 camera ({jpeg['bytes']} "
                 f"bytes): {jpeg['image_ms']:.2f} ms, of which the Huffman "
                 f"decoding (C) {jpeg['huffman_ms']:.2f} ms")
         frame0 = published_frame_on_cpu(e, cfg_path, cfg, tmp, work,
-                                        out["detections"], phase)
-        agreement = None if nusc else eval_card_vs_cpu(tmp)
+                                        out["detections"], phase, args)
+        agreement = eval_card_vs_cpu(tmp) if e.get("mini") else None
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     result = dict(p50_ms=float(np.percentile(warm, 50)),
                   mean_ms=float(warm.mean()), scans_timed=len(warm),
+                  rows_per_frame=rows,
                   speed_test_middle_third_ms=dict(
                       mean=float(mid.mean()),
                       p50=float(np.percentile(mid, 50))),
@@ -2358,11 +2490,12 @@ def run_train_entry(t=TRAIN_ENTRY, e=EVAL, phase="3e"):
         cap, ishape = cfg.capacity, eval_tool.input_shape_of(cfg)
         B = cfg.data.samples_per_gpu
         mode = default_worker_mode(cfg.data)
+        img_bb = cfg.model.get("img_backbone")
         log(f"  tree: {what} written in {secs:.2f} s; B={B}, grid {ishape}, "
             f"capacity {dict(cap)}, loader {mode} "
             f"x{cfg.data.workers_per_gpu}, pretrained "
-            f"{cfg.model.img_backbone.get('pretrained')} (missing: not "
-            "loaded)")
+            + (f"{img_bb.get('pretrained')} (missing: not loaded)" if img_bb
+               else "none (no image backbone)"))
         if nusc and mode != "shm":
             raise SystemExit(f"phase {phase}: the loader would run in "
                              f"{mode} mode, not shm ({os.cpu_count()} CPUs)")
@@ -2617,11 +2750,16 @@ def main():
     from lidarseg3d_torch.ops import cuda_build
 
     t_start = time.perf_counter()
-    log("phase 1: card")
+
+    def phase(text):
+        """A phase's header, with the seconds since the script started."""
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase {text}")
+
+    phase("1: card")
     log(f"  {card}")
     log(f"  {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    log("phase 2: build")
+    phase("2: build")
     secs = cuda_build.build()
     log(f"  built {sorted(cuda_build.SOURCES)} (nvcc) and "
         f"{sorted(cuda_build.HOST_SOURCES)} (cc) in {secs:.1f} s")
@@ -2630,33 +2768,43 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
     paths, runs = main_paths(), {}
-    for phase, name in (("3", "semkitti"), ("3b", "semnusc")):
-        log(f"phase {phase}: main path {name}")
+    for ph, name in (("3", "semkitti"), ("3b", "semnusc")):
+        phase(f"{ph}: main path {name}")
         runs[name] = run_path(name, paths[name])
-    log("phase 3c: main path train")
+    phase("3c: main path train")
     runs["train"] = run_train()
     small_train_check()
-    log("phase 3d: main path eval (published semkitti config)")
+    phase("3d: main path eval (published semkitti config)")
     runs["eval"] = run_eval_path()
-    log("phase 3e: main path train entry (published semkitti config, B=2)")
+    phase("3e: main path train entry (published semkitti config, B=2)")
     runs["train_entry"] = run_train_entry()
-    log("phase 3f: main path eval-nu (published nuScenes config)")
+    phase("3f: main path eval-nu (published nuScenes config)")
     runs["eval_nu"] = run_eval_path(EVAL_NU, "3f")
-    log("phase 3g: main path train-nu (published nuScenes config, B=3, "
-        "shm loader)")
+    phase("3g: main path train-nu (published nuScenes config, B=3, "
+          "shm loader)")
     runs["train_nu"] = run_train_entry(TRAIN_NU, EVAL_NU, "3g")
-    log("phase 4: kernels against their plain versions")
+    phase("3h: main path sdseg-eval (published SDSeg3D semkitti config, "
+          "then its _tta config with --tta)")
+    runs["sd_eval"] = run_eval_path(EVAL_SD, "3h")
+    runs["sd_eval_tta"] = run_eval_path(EVAL_SD_TTA, "3h")
+    phase("3i: main path sdseg-train (published SDSeg3D semkitti config, "
+          "B=4)")
+    runs["sd_train"] = run_train_entry(TRAIN_SD, EVAL_SD, "3i")
+    phase("3j: main path sdseg-nu-tta (published SDSeg3D nuScenes _tta "
+          "config with --tta)")
+    runs["sd_nu_tta"] = run_eval_path(EVAL_SD_NU, "3j")
+    phase("4: kernels against their plain versions")
     report = kernel_checks(runs)
     for row in report:
         k = row["name"].split("[")[0]
         by_path = {n: r["launches"][k] for n, r in runs.items()}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
-    log("phase 5: profile of one scan per inference path, one train step, "
-        "and each inference path's structures+rulebooks build")
+    phase("5: profile of one scan per inference path, one train step, "
+          "and each inference path's structures+rulebooks build")
     for name, r in runs.items():
         log(f"  {name}:")
-        training = name in ("train", "train_entry", "train_nu")
+        training = "step" in r
         if training:
             fn = lambda r=r: r["step"](r["state"], r["ex0"])  # noqa: E731
         else:

@@ -1,12 +1,14 @@
 """Evaluation loop: batched inference -> per-frame predictions -> dataset
-mIoU (own copy of run_eval without TTA, run_eval_device_hist and
-evaluate_dataset of lidarseg3d_tpu/apis/eval.py).
+mIoU (own copy of run_eval, run_eval_device_hist and evaluate_dataset of
+lidarseg3d_tpu/apis/eval.py).
 
 Each batch goes to the model's device, and only its int32 label rows come
-back to the host. ``run_eval_device_hist`` keeps even the confusion
-histogram on the device and moves a [C, C] array per batch. Test-time
-augmentation (merging the softmax of a frame's variants) is not ported
-yet and raises.
+back to the host; under test-time augmentation (TTA) its float32 softmax
+rows come back instead. A frame's variants arrive as consecutive batch
+rows (SegCompoundAug, Reformat, the loader); their softmax is summed in
+variant order, divided by the count and the argmax taken (the reference's
+merge_type "ArithmeticMean"). ``run_eval_device_hist`` keeps even the
+confusion histogram on the device and moves a [C, C] array per batch.
 """
 
 import time
@@ -25,22 +27,26 @@ def _device_of(state):
 
 def run_eval(model, state, loader, input_shape, dataset, logger=None,
              test_cfg=None, speed_test=False, latencies=None):
-    """-> {token: {"pred_point_sem_labels": int32 [n]}} over the loader's
-    epoch 0, n the frame's point count.
+    """-> {token: {"pred_point_sem_labels": [n]}} over the loader's epoch
+    0, n the frame's point count: int32 labels, or under
+    ``test_cfg["tta_flag"]`` the argmax (int64) of the mean softmax of the
+    frame's ``test_cfg["num_tta_tranforms"]`` variants (default 4); a
+    frame with another number of rows raises, as the JAX package asserts.
 
     ``speed_test`` times each batch alone, from its dispatch to its labels
     being ready, between two ``torch.cuda.synchronize()`` calls with CUDA
     events (the host clock on the CPU), and logs the mean and p50 over the
-    middle third of the batches, per frame. ``latencies``, a list, receives
-    every batch's seconds per frame."""
-    if test_cfg and test_cfg.get("tta_flag", False):
-        raise NotImplementedError("run_eval: TTA is not ported to "
-                                  "lidarseg3d_torch yet")
+    middle third of the batches, per batch row (a TTA variant counts as a
+    row, as in the JAX package). ``latencies``, a list, receives every
+    batch's seconds per row."""
+    tta = bool(test_cfg and test_cfg.get("tta_flag", False))
+    num_tta = int(test_cfg.get("num_tta_tranforms", 4)) if tta else 1
+    key = "point_softmax" if tta else "pred_point_sem_labels"
     dev = _device_of(state)
     on_card = dev.type == "cuda"
     eval_step = make_eval_step(model, input_shape)
     lat = [] if latencies is None else latencies
-    detections = {}
+    detections, pending = {}, {}  # pending: token -> (softmax sum, count)
     for it, batch in enumerate(loader.epoch(0)):
         dev_batch = example_to_device(batch, dev)
         if speed_test:
@@ -50,8 +56,8 @@ def run_eval(model, state, loader, input_shape, dataset, logger=None,
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
             t0 = time.perf_counter()
-        labels = eval_step(state, dev_batch)["pred_point_sem_labels"].to(
-            torch.int32)
+        out = eval_step(state, dev_batch)[key]
+        out = out.float() if tta else out.to(torch.int32)
         if speed_test:
             if on_card:
                 end.record()
@@ -60,12 +66,24 @@ def run_eval(model, state, loader, input_shape, dataset, logger=None,
             else:
                 secs = time.perf_counter() - t0
             lat.append(secs / len(batch["metadata"]))
-        labels = labels.cpu().numpy()
+        out = out.cpu().numpy()
         npts = batch["num_points_total"]
         for b, md in enumerate(batch["metadata"]):
             token = md["token"] if md else f"frame_{it}_{b}"
-            detections[token] = {
-                "pred_point_sem_labels": labels[b, :int(npts[b])]}
+            n = int(npts[b])
+            if not tta:
+                detections[token] = {"pred_point_sem_labels": out[b, :n]}
+                continue
+            acc, cnt = pending.get(token, (0.0, 0))
+            acc, cnt = acc + out[b, :n], cnt + 1
+            if cnt == num_tta:
+                detections[token] = {
+                    "pred_point_sem_labels": np.argmax(acc / cnt, axis=-1)}
+                pending.pop(token, None)
+            else:
+                pending[token] = (acc, cnt)
+    if pending:
+        raise AssertionError(f"incomplete TTA groups: {list(pending)[:4]}")
     if speed_test and logger is not None:
         mid = np.asarray(lat[len(lat) // 3: 2 * len(lat) // 3])
         if len(mid):

@@ -8,7 +8,8 @@ is its ``state_dict`` key, except for:
   a ModuleList: ``.../blocks/SparseBasicBlock_0/...`` (SparseBasicBlockStack)
   -> ``blocks.{i}``, ``.../scan/HRModule_0/...`` (HRModuleStack) ->
   ``scan.{i}``, ``.../SFFMDecoderLayer_0/...`` (the SFFM decoder) ->
-  ``SFFMDecoderLayer_0.{i}``;
+  ``SFFMDecoderLayer_0.{i}``, ``.../EncoderLayers/
+  TransformerEncoderLayerPreNorm_0/...`` (TransVFE) -> ``EncoderLayers.{i}``;
 - leaf layouts, chosen by the type of the torch module that owns the leaf:
   Linear kernel [in, out] (or a DenseGeneral's [in, H, dh] / [H, dh, out])
   -> weight [out, in]; Conv2d kernel HWIO -> OIHW; sparse conv kernel
@@ -37,7 +38,8 @@ from torch import nn
 from .models.sparse_modules import _SparseConvBase
 
 _SCANS = (("blocks", "SparseBasicBlock_0"), ("scan", "HRModule_0"),
-          (None, "SFFMDecoderLayer_0"))
+          (None, "SFFMDecoderLayer_0"),
+          ("EncoderLayers", "TransformerEncoderLayerPreNorm_0"))
 
 
 def _leaves(tree, path=()):

@@ -1,12 +1,13 @@
 """Segmentation preprocessing stages (own copy of
-lidarseg3d_tpu/datasets/pipelines/seg_preprocess.py without the TTA
-variants): SegPreprocess (the train-time point augmentations, the shuffle
-of points and labels, ``points_with_labels`` and the ``npoints`` cap),
-SegVoxelization on core/voxelize.py, SegAssignLabel (one label per voxel),
-SegImagePreprocess (resize, the train-time image augmentations, normalize,
-points_cuv) and Reformat. Every draw comes from the sample's ``rng`` in
-the JAX package's order. The TTA variants (SegCompoundAug) are not ported
-yet and raise.
+lidarseg3d_tpu/datasets/pipelines/seg_preprocess.py): SegPreprocess (the
+train-time point augmentations, the shuffle of points and labels,
+``points_with_labels`` and the ``npoints`` cap), SegVoxelization on
+core/voxelize.py (with the test-time augmentation's variants),
+SegAssignLabel (one label per voxel), SegCompoundAug (the variants'
+clouds), SegImagePreprocess (resize, the train-time image augmentations,
+normalize, points_cuv) and Reformat (one frame, or the list of a frame's
+variants). Every draw comes from the sample's ``rng`` in the JAX
+package's order.
 """
 
 import numpy as np
@@ -81,9 +82,6 @@ class SegVoxelization:
         self.max_points_in_voxel = cfg["max_points_in_voxel"]
         mv = cfg["max_voxel_num"]
         self.max_voxel_num = [mv, mv] if isinstance(mv, int) else mv
-        if cfg.get("tta_flag", False):
-            raise NotImplementedError("SegVoxelization: TTA variants are not "
-                                      "ported to lidarseg3d_torch yet")
         if not cfg.get("sort_by_key", True):
             raise NotImplementedError("SegVoxelization: the port voxelizes "
                                       "in key order only (sort_by_key)")
@@ -94,15 +92,25 @@ class SegVoxelization:
 
     def __call__(self, sample, info):
         train = sample["mode"] == "train"
+        max_voxels = self.max_voxel_num[0 if train else 1]
         voxels, coordinates, num_points = self.voxel_generator.generate(
             sample["points_with_labels"] if train else sample["points"],
-            max_voxels=self.max_voxel_num[0 if train else 1])
+            max_voxels=max_voxels)
         sample["voxels"] = dict(
             voxels=voxels, coordinates=coordinates, num_points=num_points,
             num_voxels=np.array([voxels.shape[0]], dtype=np.int64),
             shape=self.voxel_generator.grid_size,
             range=np.asarray(self.range, np.float32),
             size=np.asarray(self.voxel_size, np.float32))
+        # the TTA variants SegCompoundAug made (the config's tta_flag only
+        # marks a pipeline that has that stage in front)
+        for i in range(1, sample.get("num_tta_transforms", 0)):
+            v, c, n = self.voxel_generator.generate(
+                sample[f"tta_{i}_points"], max_voxels=max_voxels)
+            sample[f"tta_{i}_voxels"] = dict(
+                voxels=v, coordinates=c, num_points=n,
+                num_voxels=np.array([v.shape[0]], dtype=np.int64),
+                shape=self.voxel_generator.grid_size)
         return sample, info
 
 
@@ -133,16 +141,47 @@ class SegAssignLabel:
 
 
 @PIPELINES.register_module
+class SegCompoundAug:
+    """Test-time augmentation: the clouds of variants 1..T-1 of a frame
+    (variant 0 is the frame itself), each a copy of its points flipped,
+    rotated, scaled and translated with draws from the frame's ``rng``, in
+    variant order. The config keys are the JAX package's
+    (``num_tta_tranforms``, ``global_rot_noise``, ``global_scale_noise``,
+    ``global_translate_std``; the flip probability is 0.5); others are
+    ignored, as there (ROADMAP, reference caveat 8)."""
+
+    def __init__(self, cfg=None, **kwargs):
+        self.num_tta_transforms = cfg.get(
+            "num_tta_tranforms", cfg.get("num_tta_transforms", 4))
+        self.rot = cfg.get("global_rot_noise", [-0.78539816, 0.78539816])
+        self.scale = cfg.get("global_scale_noise", [0.95, 1.05])
+        self.translate = cfg.get("global_translate_std", 0.5)
+
+    def __call__(self, sample, info):
+        rng = sample.get("rng") or np.random.default_rng()
+        for i in range(1, self.num_tta_transforms):
+            p = sample["points"].copy()
+            p = aug.points_random_flip(p, rng=rng)
+            p = aug.points_global_rotation(p, rotation=self.rot, rng=rng)
+            p = aug.points_global_scaling(p, *self.scale, rng=rng)
+            p = aug.points_global_translate(p, self.translate, rng=rng)
+            sample[f"tta_{i}_points"] = p
+        sample["num_tta_transforms"] = self.num_tta_transforms
+        return sample, info
+
+
+@PIPELINES.register_module
 class Reformat:
-    """Assemble the per-frame dict the collate consumes."""
+    """Assemble the per-frame dict the collate consumes; with TTA variants
+    the list of the frame and its variants, which the loader makes
+    consecutive batch rows. A variant carries the frame's metadata and
+    camera keys: the cameras see the original cloud (val mode does not
+    shuffle, so the points_cuv rows still line up)."""
 
     def __init__(self, **kwargs):
         pass
 
     def __call__(self, sample, info):
-        if sample.get("num_tta_transforms", 0) > 0:
-            raise NotImplementedError("Reformat: TTA variants are not "
-                                      "ported to lidarseg3d_torch yet")
         frame = {
             "points": sample["points"].astype(np.float32),
             "metadata": sample.get("metadata", {"token": info.get("token")}),
@@ -164,6 +203,20 @@ class Reformat:
             frame["images"] = sample["images"].astype(np.float32)
             if "images_sem_labels" in sample:
                 frame["images_sem_labels"] = sample["images_sem_labels"]
+        if sample.get("num_tta_transforms", 0) > 0:
+            variants = [frame]
+            for i in range(1, sample["num_tta_transforms"]):
+                v = sample[f"tta_{i}_voxels"]
+                var = {"points": sample[f"tta_{i}_points"].astype(np.float32),
+                       "voxels": v["voxels"].astype(np.float32),
+                       "coordinates": v["coordinates"],
+                       "num_points_per_voxel": v["num_points"],
+                       "metadata": frame["metadata"]}
+                for k in ("points_cuv", "images", "images_sem_labels"):
+                    if k in frame:
+                        var[k] = frame[k]
+                variants.append(var)
+            return variants, info
         return frame, info
 
 

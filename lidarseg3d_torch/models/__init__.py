@@ -10,5 +10,5 @@ from .readers import voxel_encoders  # noqa: F401,E402
 from .backbones import unet_scn  # noqa: F401,E402
 from .img_backbones import hrnet  # noqa: F401,E402
 from .img_heads import fcn_mseg3d_head  # noqa: F401,E402
-from .point_heads import mseg3d_head  # noqa: F401,E402
-from .segmentors import seg_mseg3d  # noqa: F401,E402
+from .point_heads import batchloss_head, mseg3d_head  # noqa: F401,E402
+from .segmentors import seg_mseg3d, seg_net  # noqa: F401,E402

@@ -64,7 +64,7 @@ def rulebook_conv_plain(feat, rb, w, flip_taps=False, w_t=False, miss=None,
     for k in range(K):
         g = feat.index_select(0, rb[K - 1 - k if flip_taps else k]
                               .reshape(-1).to(torch.int64))
-        acc[:M] += g.to(acc_t) @ (w[k].T if w_t else w[k]).to(acc_t)
+        acc[:M].addmm_(g.to(acc_t), (w[k].T if w_t else w[k]).to(acc_t))
     out = acc.to(feat.dtype)
     return out if zero_row else out.reshape(B, Vout, -1)
 

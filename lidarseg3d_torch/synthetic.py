@@ -14,7 +14,10 @@ the 0.1 m nuScenes grid (Z, Y, X) = (41, 1024, 1024), six cameras at
 ``write_semantickitti_tree`` and ``write_semnusc_tree`` write a seeded
 dataset on disk in SemanticKITTI's and nuScenes-lidarseg's layouts, and
 ``write_eval_config`` a config whose splits read it, for the evaluation
-and training entry points.
+and training entry points; ``write_mini_segnet_config`` cuts a published
+SegNet config (SDSeg3D, the MSeg3D lidar-only baselines) to a mini model
+over such a tree. ``segnet_model_cfg`` is SDSeg3D's model at its
+published widths.
 """
 
 import json
@@ -150,6 +153,38 @@ def mseg3d_model_cfg(num_class=20, ratio=2, img_hw=(384, 1280),
             ),
         ),
     )
+
+
+def segnet_model_cfg(num_class=20, ratio=2, pcr=None, vsz=None,
+                     num_input_features=4, reader="transvfe"):
+    """SDSeg3D (configs/semantickitti/SDSeg3D/
+    semkitti_transVFE_unetscn3d_batchloss_e10.py): TransVFE (3 layers,
+    embedding 64, 4 heads, 16 compressed features) + UNetSCN3D(r) + the
+    batch-loss head; ``reader="improved_mean"`` gives the MSeg3D papers'
+    lidar-only baseline (ImprovedMeanVFE, whose descriptor feeds the
+    backbone)."""
+    if reader == "transvfe":
+        rd = dict(type="TransformerVoxelFeatureExtractor",
+                  num_input_features=num_input_features,
+                  num_compressed_features=16, num_embed=64, num_head=4,
+                  num_layers=3)
+        c_in = 16
+    else:
+        rd = dict(type="ImprovedMeanVoxelFeatureExtractor",
+                  num_input_features=num_input_features)
+        c_in = num_input_features + 8
+    return dict(
+        type="SegNet", pretrained=None, reader=rd,
+        backbone=dict(type="UNetSCN3D", num_input_features=c_in, ds_factor=8,
+                      us_factor=8, point_cloud_range=list(pcr or PCR),
+                      voxel_size=list(vsz or VSZ),
+                      model_cfg=dict(SCALING_RATIO=ratio,
+                                     DOWN_CAPACITY_RATIOS=(0.5, 0.25, 0.15))),
+        point_head=dict(type="PointSegBatchlossHead", class_agnostic=False,
+                        num_class=num_class,
+                        model_cfg=dict(CONV_IN_DIM=16 * ratio,
+                                       CONV_CLS_FC=[64], CONV_ALIGN_DIM=64,
+                                       OUT_CLS_FC=[64, 64], IGNORED_LABEL=0)))
 
 
 def synthetic_mseg3d_batch(B, V, N, img_hw=(384, 1280), ncam=1, seed=0,
@@ -446,7 +481,7 @@ def write_eval_config(path, config, data_root, work_dir=None):
     """Write to ``path`` a copy of the config file ``config`` whose data
     splits read the tree at ``data_root`` (as ``write_semantickitti_tree``
     or ``write_semnusc_tree`` writes it; a split's ``info_path`` keeps its
-    file name under ``data_root``), with the image backbone's
+    file name under ``data_root``), with the image backbone's (if any)
     ``frozen_stages=3`` (as every published MSeg3D config sets it) and,
     if given, ``work_dir``. Returns ``path``."""
     with open(config) as f:
@@ -456,9 +491,71 @@ def write_eval_config(path, config, data_root, work_dir=None):
              "    if 'info_path' in data[_split]:\n"
              f"        data[_split]['info_path'] = {data_root!r} + '/' + "
              "data[_split]['info_path'].rsplit('/', 1)[-1]\n"
-             "model['img_backbone']['frozen_stages'] = 3\n")
+             "if model.get('img_backbone'):\n"
+             "    model['img_backbone']['frozen_stages'] = 3\n")
     if work_dir is not None:
         text += f"work_dir = {work_dir!r}\n"
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+# a published SegNet config cut to a mini model (its pipelines, dataset,
+# optimizer and schedule stay the published ones): a 25.6 m grid at 0.4 m,
+# capacity 2048, UNetSCN3D r=1, TransVFE of one 16-wide layer, 16-wide
+# head layers, B=2
+_MINI_SEGNET = """
+point_cloud_range = [-12.8, -12.8, -3.0, 12.8, 12.8, 3.0]
+voxel_size = [0.4, 0.4, 0.3]
+voxel_generator.update(range=point_cloud_range, voxel_size=voxel_size,
+                       max_voxel_num=[2000, 2000])
+capacity = dict(max_voxels=2048, max_points=2048)
+train_preprocessor["npoints"] = 2000
+model["backbone"].update(point_cloud_range=point_cloud_range,
+                         voxel_size=voxel_size)
+model["backbone"]["model_cfg"]["SCALING_RATIO"] = 1
+model["point_head"]["model_cfg"].update(CONV_IN_DIM=16, CONV_CLS_FC=[16],
+                                        CONV_ALIGN_DIM=16, OUT_CLS_FC=[16])
+if model["reader"]["type"] == "TransformerVoxelFeatureExtractor":
+    model["reader"].update(num_embed=16, num_layers=1)
+for _split in ("train", "val", "test"):
+    data[_split]["root_path"] = {root!r}
+    if "info_path" in data[_split]:
+        data[_split]["info_path"] = ({root!r} + "/"
+                                     + data[_split]["info_path"].rsplit("/")[-1])
+    if "sequences" in data[_split]:
+        data[_split]["sequences"] = ["08"] if _split != "train" else ["00"]
+data.update(samples_per_gpu=2, workers_per_gpu=1)
+log_config = dict(interval=1)
+work_dir = {work!r}
+"""
+
+
+# the cameras of a nuScenes split (the lidar baselines keep the MSeg3D
+# config's camera settings) cut to those of the tree
+_MINI_CAMS = """
+for _split in ("train", "val", "test"):
+    if data[_split].get("cam_chan"):
+        _names = [str(i + 1) for i in range({n})]
+        data[_split].update(
+            cam_chan={chans!r}, cam_names=_names,
+            cam_attributes={{c: data[_split]["cam_attributes"][c]
+                            for c in _names}})
+"""
+
+
+def write_mini_segnet_config(path, config, data_root, work_dir="unused",
+                             cam_chans=None):
+    """Write to ``path`` the published SegNet config file ``config`` cut to
+    a mini model (``_MINI_SEGNET``) whose splits read the tree at
+    ``data_root``: SemanticKITTI's sequences directory (train "00", val and
+    test "08", as ``write_semantickitti_tree`` writes them) or a nuScenes
+    root with its infos, whose camera channels ``cam_chans`` (if given)
+    replace a split's. Returns ``path``."""
+    with open(config) as f:
+        text = f.read() + _MINI_SEGNET.format(root=data_root, work=work_dir)
+    if cam_chans is not None:
+        text += _MINI_CAMS.format(n=len(cam_chans), chans=list(cam_chans))
     with open(path, "w") as f:
         f.write(text)
     return path

@@ -2,7 +2,7 @@
 submission files on test (the port's counterpart of tools/test.py).
 
     python -m lidarseg3d_torch.tools.test CONFIG --checkpoint WORK_DIR[/epoch_N]
-        [--work_dir DIR] [--testset] [--speed_test] [--batch_size N]
+        [--work_dir DIR] [--testset] [--speed_test] [--tta] [--batch_size N]
         [--device cuda|cpu]
 
 The model is built from the config, its weights and BN statistics loaded
@@ -12,10 +12,14 @@ port's dataset and loader into ``apis.eval.run_eval``; the mIoU and each
 class's IoU are printed (``--testset`` writes the dataset's submission
 files under the work dir instead). The loader takes the config's
 ``worker_mode``, else ``shm`` workers on a host with more than two CPUs.
-The device is ``cuda`` unless ``--device cpu`` is given, and the tool
-raises when there is no card. Not ported yet:
-test-time augmentation (``--tta`` raises), the detection models, and
-multi-process runs.
+``--tta`` evaluates with test-time augmentation, as the JAX tool does: a
+SegCompoundAug stage (the config's ``tta_cfg``) goes in front of
+SegVoxelization, which voxelizes every variant, each frame becomes
+``num_tta_tranforms`` batch rows, and run_eval merges their softmax. A
+config whose ``test_cfg`` sets ``tta_flag`` expects the variants, so it
+fails without ``--tta``, as in the JAX package. The device is ``cuda``
+unless ``--device cpu`` is given, and the tool raises when there is no
+card. Not ported yet: the detection models and multi-process runs.
 """
 
 import argparse
@@ -59,15 +63,25 @@ def input_shape_of(cfg):
     return (int(grid[2]) + 1, int(grid[1]), int(grid[0]))
 
 
+def tta_dataset_cfg(ds_cfg, tta_cfg):
+    """The dataset config with SegCompoundAug in front of SegVoxelization,
+    whose config gets ``tta_flag`` and the ``tta_cfg`` keys (the JAX
+    tool's --tta)."""
+    pipe = []
+    for st in ds_cfg["pipeline"]:
+        if st["type"] == "SegVoxelization":
+            pipe.append(dict(type="SegCompoundAug", cfg=dict(tta_cfg)))
+            st = dict(st, cfg=dict(st["cfg"], tta_flag=True, **tta_cfg))
+        pipe.append(st)
+    return dict(ds_cfg, pipeline=pipe)
+
+
 def main(argv=None):
     """Run the evaluation; returns {"detections", "results" (the dataset's
     evaluation, None on the test split), "latencies" (seconds per frame of
     each batch under --speed_test), "state" (the loaded model's train
     state)}."""
     args = parse_args(argv)
-    if args.tta:
-        raise NotImplementedError("--tta: SegCompoundAug and the TTA merge "
-                                  "are not ported to lidarseg3d_torch yet")
     from ..apis.eval import evaluate_dataset, run_eval
     from ..apis.train import TrainState, load_checkpoint
     from ..datasets import SegDataLoader, build_dataset, default_worker_mode
@@ -81,7 +95,16 @@ def main(argv=None):
     logger = _logger()
 
     split = "test" if args.testset else "val"
-    dataset = build_dataset(cfg.data[split].to_dict())
+    ds_cfg = cfg.data[split].to_dict()
+    test_cfg = dict(cfg.get("test_cfg") or {})
+    if args.tta:
+        tta_cfg = cfg.get("tta_cfg")
+        tta_cfg = (dict(num_tta_tranforms=4) if tta_cfg is None
+                   else tta_cfg.to_dict())
+        ds_cfg = tta_dataset_cfg(ds_cfg, tta_cfg)
+        test_cfg["tta_flag"] = True
+        test_cfg.setdefault("num_tta_tranforms", 4)
+    dataset = build_dataset(ds_cfg)
     logger.info(f"{split} dataset: {len(dataset)} frames")
     cap = cfg.get("capacity", {})
     loader = SegDataLoader(
@@ -108,7 +131,7 @@ def main(argv=None):
     latencies = []
     with loader:
         dets = run_eval(model, state, loader, input_shape_of(cfg), dataset,
-                        logger, test_cfg=dict(cfg.get("test_cfg") or {}),
+                        logger, test_cfg=test_cfg,
                         speed_test=args.speed_test, latencies=latencies)
     res = evaluate_dataset(dataset, dets, output_dir=work_dir,
                            testset=args.testset, logger=logger)

@@ -7,7 +7,7 @@ import jax
 import numpy as np
 import torch
 
-_SCAN_SCOPES = ("blocks", "scan", "SFFMDecoderLayer_0")
+_SCAN_SCOPES = ("blocks", "scan", "SFFMDecoderLayer_0", "EncoderLayers")
 
 
 def init_shapes(module, *args, **kwargs):

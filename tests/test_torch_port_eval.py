@@ -142,7 +142,7 @@ def evaluated(tmp_path_factory):
     out = tool.main([cfg_path, "--checkpoint", work_dir, "--device", "cpu",
                      "--speed_test"])
     return dict(cfg=cfg, jdets=jdets, jres=jres, out=out, tm=tm,
-                ishape=ishape, work_dir=work_dir)
+                ishape=ishape, work_dir=work_dir, data_root=data_root)
 
 
 def test_entry_point_matches_jax_run_eval(evaluated):
@@ -183,11 +183,16 @@ def test_device_hist_equals_host_hist(evaluated):
 
 
 def test_entry_point_refuses_a_missing_card_and_tta(evaluated, tmp_path):
+    """Without a card the default device raises; a config whose test_cfg
+    asks for TTA variants (tta_flag) raises without --tta, whose pipeline
+    makes none (as the JAX package's run_eval asserts)."""
     cfg_path = write_eval_config(str(tmp_path / "c.py"), MINI_CONFIG,
-                                 "unused", "unused")
+                                 evaluated["data_root"], str(tmp_path))
+    with open(cfg_path, "a") as f:
+        f.write("test_cfg = dict(tta_flag=True, num_tta_tranforms=4)\n")
     args = [cfg_path, "--checkpoint", evaluated["work_dir"]]
-    with pytest.raises(NotImplementedError, match="tta"):
-        tool.main(args + ["--tta", "--device", "cpu"])
+    with pytest.raises(AssertionError, match="incomplete TTA groups"):
+        tool.main(args + ["--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tool.main(args)

@@ -1,7 +1,7 @@
 """Hygiene of the port: lidarseg3d_torch (its solver, apis, losses,
 datasets, the train pipeline's augmentations, colour-space and JPEG
-modules, the nuScenes dataset, info builder and JPEG reader, and tools
-included), chip_smoke.py and the profile_*.py
+modules, the nuScenes dataset, info builder and JPEG reader, SegNet's
+reader, head and segmentor, and tools included), chip_smoke.py and the profile_*.py
 scripts import nothing of JAX, Flax, optax, the JAX package or
 __graft_entry__, and no image library (cv2, PIL, imageio: the card's
 machine has none); the entry points run on cuda unless told otherwise;
@@ -34,6 +34,9 @@ NUSC_MODULES = ("datasets/nuscenes/metadata.py",
                 "datasets/nuscenes/dataset.py", "datasets/validate.py",
                 "datasets/pipelines/jpeg_read.py", "tools/create_data.py",
                 "synthetic.py")
+SEGNET_MODULES = ("models/readers/voxel_encoders.py",
+                  "models/point_heads/batchloss_head.py",
+                  "models/segmentors/seg_net.py", "convert.py")
 SCRIPTS = ("chip_smoke.py", "profile_build.py", "profile_convs.py",
            "profile_merge.py")
 
@@ -57,7 +60,8 @@ def test_port_imports_no_jax():
     listed = {str(p.relative_to(ROOT / "lidarseg3d_torch"))
               for p in files[:-len(SCRIPTS)]}
     wanted = (set(TRAINING_MODULES) | set(EVAL_MODULES)
-              | set(TRAIN_ENTRY_MODULES) | set(NUSC_MODULES))
+              | set(TRAIN_ENTRY_MODULES) | set(NUSC_MODULES)
+              | set(SEGNET_MODULES))
     assert wanted <= listed, wanted - listed
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imports(p) if m.split(".")[0] in FORBIDDEN]
