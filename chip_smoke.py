@@ -2,9 +2,11 @@
 """Drive the port's main paths on one CUDA card and hold its kernels against
 their plain PyTorch versions.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 3k,3l,4,5]
 
-Phases (each fails loudly with a non-zero exit):
+With no argument every phase runs (phases 1 and 2 always do; phases 4 and
+5 cover the paths that ran). Phases (each fails loudly with a non-zero
+exit):
   1. print the card's name and power limit (nvidia-smi); no card -> exit 1;
   2. build the five CUDA kernels and the JPEG entropy coder (host C) from
      lidarseg3d_torch/csrc into lidarseg3d_torch/build (one compiler per
@@ -47,7 +49,7 @@ Phases (each fails loudly with a non-zero exit):
      seeded weights with BN statistics calibrated on frame 0 (so labels
      spread), saved by save_checkpoint, evaluated by the entry point
      lidarseg3d_torch.tools.test (main, in-process, --speed_test) on a
-     seeded tree of sequence 08 (20 frames of 120,000-125,000 points,
+     seeded tree of sequence 08 (8 frames of 120,000-125,000 points,
      1241x376 PNGs) through the val pipeline, the loader, run_eval and
      evaluation; check every frame's prediction against its label file's
      point count and the label range, that the predicted classes spread
@@ -57,18 +59,22 @@ Phases (each fails loudly with a non-zero exit):
      scans after the first and the host pipeline per frame; then frame 0
      at its published size through the same entry point on the CPU, and
      the mini config card against CPU (labels 99.9%, mIoU within 0.1
-     point, each);
+     point, each; these CPU-side runs, and every run of 3k-3m, take the
+     loader's threads: an shm loader's start costs ~10-12 s);
   3e. train entry: the same published config trained at full width and
      depth through the entry point lidarseg3d_torch.tools.train (main,
-     in-process; B=2 = samples_per_gpu, seeded weights, the config's
-     missing pretrained file loads nothing) on a seeded tree of one frame
+     in-process; B=2 = samples_per_gpu, seeded weights; the config's
+     pretrained HRNet-w18: a seeded state_dict in mmcv's names and shapes,
+     torch.save'd and converted by the port's
+     tools/convert_hrnet_checkpoint.py, imported bit for bit, its report
+     in train.log) on a seeded tree of one frame
      in each of its ten train sequences (120,000-125,000 points, 1241x376
      PNGs) through the train pipeline (augmentations, colour jitter, JPEG
      round trip, label splat), the loader and train_segmentor:
-     --total_epochs 2 --max_steps_per_epoch 3, which must write epoch_1,
+     --total_epochs 2 --max_steps_per_epoch 2, which must write epoch_1,
      epoch_2 and latest.txt, then --resume_from --total_epochs 3, whose
      loaded state must equal the saved one exactly and which must start
-     at global step 6; check every loss term and the gradient norm
+     at global step 4; check every loss term and the gradient norm
      finite, every parameter outside the frozen stages moved, each step's
      launches of every kernel (those of phase 3d's tables keys, keys,
      rank, rank, plus 35 dX convs and 36 dW), the table kinds; print the
@@ -81,7 +87,7 @@ Phases (each fails loudly with a non-zero exit):
      (configs/semanticnusc/MSeg3D/semnusc_avgvfe_unetscn3d_hrnetw18_lr1en2_e12.py:
      0.1 m grid 41x1024x1024, capacity 40960 / 40960, six cameras,
      frozen_stages=3, with_cp, ACT_REMAT) at full width and depth as in
-     3d, on a seeded val scene of four key frames
+     3d, on a seeded val scene of three key frames
      (synthetic.write_semnusc_tree: 30,000-34,688 points, six 1600x900
      JPEGs each; infos and the --dry-data check by tools.create_data),
      through the entry point tools.test with the loader in shm mode; the
@@ -99,19 +105,36 @@ Phases (each fails loudly with a non-zero exit):
      SegNet of TransVFE (three encoder layers), UNetSCN3D r=2 and the
      batch-loss head; grid 41x1504x1504, capacity 160000 / 131072) at
      full width as in 3d (BN calibrated on frame 0, tools.test with
-     --speed_test) on a seeded 10-frame sequence 08, then its _tta config
-     with --tta on a 6-frame one (four variant rows a frame, their softmax
+     --speed_test) on a seeded 4-frame sequence 08, then its _tta config
+     with --tta on a 3-frame one (four variant rows a frame, their softmax
      merged); the checks of 3d (launches per frame, labels, spread, mIoU,
      the device histogram without TTA, frame 0 card vs CPU with and without
      TTA), no mini config;
   3i. sdseg-train: the same config trained as in 3e at its
      samples_per_gpu=4 (the only B=4 path; TransVFE's layers recomputed in
-     the backward), 2 epochs of 2 steps and a resume; per step 36 + 36 dX
+     the backward), 1 epoch of 2 steps and a resume; per step 36 + 36 dX
      convs (TransVFE's output needs a gradient) and 36 dW;
   3j. sdseg-nu-tta: the published SDSeg3D nuScenes _tta config with --tta
      (six variant rows a frame; grid 41x1024x1024, capacity 40960) on a
-     seeded val scene of four key frames, the checks of 3f without the
+     seeded val scene of three key frames, the checks of 3f without the
      JPEG read;
+  3k. cyl-eval: the published Cylinder3D nuScenes config
+     (configs/semanticnusc/Cylinder3D/semnusc_dymanicvfe_cylinder3d_lr1en2_e12.py:
+     SegPolarNet of the dynamic cylindrical VFE, the asymmetric sparse
+     UNet at init_size 16 on the 480x360x32 grid, 120,000 voxels, the
+     PolarNet head; no host voxelization) through the entry point as 3j
+     (BN calibrated on frame 0, a camera-less val scene of four key
+     frames), then its _v2p config (the batch-loss head devoxelizing on
+     the (32,360,480) KeyTable); launches per frame (merge 8 / 9: the
+     point -> voxel lookup, 7 KeyTable rulebooks, the _v2p head), labels,
+     spread, mIoU, the device histogram, frame 0 card vs CPU;
+  3l. cyl-train: both configs trained through the entry point at
+     samples_per_gpu=2, one epoch of 2 steps (Cylinder3D then a resume
+     that must be bit for bit); per step every conv's dX and dW
+  3m. polar: the published PolarNet nuScenes config (the dynamic BEV VFE,
+     the circular BEV UNet on cuDNN: no kernel of the port, 0 launches)
+     evaluated on four frames and trained at B=2, one epoch of 2 steps and
+     a resume;
   4. hold each kernel against its plain version on the card at each main
      path's shapes, from a real scan of that path: the rulebook conv in
      fp32 and bf16 (stage-1 subm, stage-1->2 strided, stage-4 subm; and as
@@ -139,7 +162,14 @@ Phases (each fails loudly with a non-zero exit):
      (B=4), the input conv 16->32 forward and dX, dW 16->32 and 32->32,
      the merge on its stage-1 and stage-2 KeyTables and the pack of its
      stage-3 table (four rows in one launch), and the merge on the stage-1
-     KeyTable of one TTA frame of 3h (4 rows) and 3j (6 rows). The
+     KeyTable of one TTA frame of 3h (4 rows) and 3j (6 rows); from a
+     frame of cyl-eval and a B=2 batch of cyl-train (3k, 3l), all 24
+     rulebooks of Cylinder3D's structures on both table kinds (K = 9 and
+     3, the kernels one tap wide in x, strides (2,2,2) and (2,2,1)
+     strided and inverse), the points' lookup through the merge kernel
+     (queries in point order), the conv at K = 9 and 3, the 17-class
+     classifier 64->17 and its dX 17->64 (fp32), the (2,2,1) strided and
+     inverse convs, and the dW of those shapes at B=2. The
      rulebook lookups: all
      10 rulebooks of each path's structures (semkitti, train at B=2,
      semnusc, eval, train entry at B=2, eval-nu, train-nu at B=3,
@@ -236,18 +266,20 @@ TOL_BF16_BRANCH = 0.1  # max |err| / max |fp32|, tests/_bf16_test_body.py
 # the mini config card against CPU through the same entry point
 EVAL = dict(config="configs/semantickitti/MSeg3D/"
             "semkitti_avgvfe_unetscn3d_hrnetw18_lr1en2_e12.py",
-            frames=20, points=(120000, 125000), seed=0, image_hw=(376, 1241),
+            frames=8, points=(120000, 125000), seed=0, image_hw=(376, 1241),
             max_range=75.0, mini="configs/tests/mini_semkitti_mseg3d.py",
             ncls=20)
 # phase 3e: the published config trained through the entry point
 # lidarseg3d_torch.tools.train at B=2 (samples_per_gpu) on a seeded tree
-# of one frame in each of its ten train sequences: 2 epochs of 3 steps,
-# then a resume for a third epoch. Per step on tables (keys, keys, rank,
+# of one frame in each of its ten train sequences, from its pretrained
+# HRNet-w18 (a seeded mmcv state_dict converted by the port's converter):
+# 2 epochs of 2 steps, then a resume for a third epoch. Per step on tables (keys, keys, rank,
 # rank), read from the dispatch: phase 3d's rulebooks, merges and packs,
 # 36 forward + 35 dX convs (the input conv's features need no gradient)
 # and one dW per conv
 TRAIN_ENTRY = dict(frames=1, points=(120000, 125000), seed=1,
-                   image_hw=(376, 1241), max_range=75.0, epochs=2, steps=3,
+                   pretrained_import=True,
+                   image_hw=(376, 1241), max_range=75.0, epochs=2, steps=2,
                    per_step={"rulebook_conv": 71, "rulebook_conv_dw": 36,
                              "rulebook_rank": 5, "rulebook_cells": 5,
                              "rulebook_decode": 5, "lookup_single": 0,
@@ -260,7 +292,7 @@ TRAIN_ENTRY = dict(frames=1, points=(120000, 125000), seed=1,
 # from tools.create_data --cams); its tables are (keys, keys, rank, rank)
 EVAL_NU = dict(config="configs/semanticnusc/MSeg3D/"
                "semnusc_avgvfe_unetscn3d_hrnetw18_lr1en2_e12.py",
-               scenes=("scene-0003",), samples=4, points=(30000, 34688),
+               scenes=("scene-0003",), samples=3, points=(30000, 34688),
                seed=2, ncls=17)
 # phase 3g: the same config trained through the entry point at its
 # samples_per_gpu=3 with the loader in shm mode (the tools' default on a
@@ -283,18 +315,60 @@ TRAIN_NU = dict(scenes=("scene-0001", "scene-0002", "scene-0041"),
 # (six variant rows a frame) on a seeded val scene. Tables (keys, keys,
 # rank, rank) on every one
 SD_KITTI = "configs/semantickitti/SDSeg3D/semkitti_transVFE_unetscn3d_batchloss_e10"
-EVAL_SD = dict(config=SD_KITTI + ".py", frames=10, points=(120000, 125000),
+EVAL_SD = dict(config=SD_KITTI + ".py", frames=4, points=(120000, 125000),
                seed=4, image_hw=(376, 1241), max_range=75.0, ncls=20)
-EVAL_SD_TTA = dict(EVAL_SD, config=SD_KITTI + "_tta.py", frames=6, seed=5,
+EVAL_SD_TTA = dict(EVAL_SD, config=SD_KITTI + "_tta.py", frames=3, seed=5,
                    tta=True)
-TRAIN_SD = dict(TRAIN_ENTRY, seed=6, epochs=2, steps=2,
+TRAIN_SD = dict(TRAIN_ENTRY, seed=6, epochs=1, steps=2,
                 per_step={**TRAIN_ENTRY["per_step"], "rulebook_conv": 72})
 EVAL_SD_NU = dict(config="configs/semanticnusc/SDSeg3D/"
                   "semnusc_transvfe_unetscn3d_batchloss_e48_tta.py",
-                  scenes=("scene-0003",), samples=4, points=(30000, 34688),
+                  scenes=("scene-0003",), samples=3, points=(30000, 34688),
                   seed=7, ncls=17, tta=True, cams=False)
+# phases 3k-3m: the SegPolarNet family at its published nuScenes configs
+# (no host voxelization: the readers voxelize on the card; camera-less
+# trees). Launches per frame (B=1) and per step (B=2), read from the
+# dispatch: the reader's point -> voxel lookup on the 480x360x32 grid's
+# KeyTable is one merge; the backbone's five stage tables are (keys,
+# rank, rank, rank, rank), one pack each RankTable; on s1 (KeyTable) the
+# subm rulebooks (1,3,3), (3,1,3), (3,3,3), (3,1,1), (1,3,1), (1,1,3) and
+# the strided rulebook into s2, a front end, a merge and a decode each; on
+# the RankTables 17 fused rulebooks (s2-s4: (3,1,3), (1,3,3), (3,3,3),
+# the strided one out and the inverse one in; s5: (3,3,3) and the inverse
+# in); 48 convs (4 + 4 x 5 + 4 x 5 + 3 + the 17-class classifier), 47 in
+# the _v2p variant, whose batch-loss head devoxelizes on the (32,360,480)
+# KeyTable (one more merge). A train step adds a dX to every conv (the
+# first convs read the reader's features) and one dW each. PolarNet (the
+# BEV UNet) launches no kernel of the port
+CYL_FRAME = {"rulebook_conv": 48, "rulebook_conv_dw": 0,
+             "rulebook_rank": 17, "rulebook_cells": 7, "rulebook_decode": 7,
+             "lookup_single": 0, "rank_lookup": 0, "rank_pack": 4,
+             "merge_lookup": 8}
+V2P_FRAME = {**CYL_FRAME, "rulebook_conv": 47, "merge_lookup": 9}
+NO_KERNEL = {k: 0 for k in CYL_FRAME}
+CYL = "configs/semanticnusc/Cylinder3D/semnusc_dymanicvfe_cylinder3d"
+EVAL_CYL = dict(config=CYL + "_lr1en2_e12.py", scenes=("scene-0003",),
+                samples=4, points=(30000, 34688), seed=8, ncls=17,
+                cams=False, per_frame=CYL_FRAME, loader="thread",
+                tables=("keys", "rank", "rank", "rank", "rank"))
+EVAL_V2P = dict(EVAL_CYL, config=CYL + "_v2p_lr1en2_e12.py", seed=9,
+                per_frame=V2P_FRAME)
+TRAIN_CYL = dict(scenes=("scene-0001", "scene-0002"), samples=2,
+                 points=(30000, 34688), seed=10, epochs=1, steps=2,
+                 cams=False, loader_modes=(), tables=EVAL_CYL["tables"],
+                 loader="thread",
+                 per_step={**CYL_FRAME, "rulebook_conv": 96,
+                           "rulebook_conv_dw": 48})
+TRAIN_V2P = dict(TRAIN_CYL, seed=11, resume=False,
+                 per_step={**V2P_FRAME, "rulebook_conv": 94,
+                           "rulebook_conv_dw": 47})
+POLAR = "configs/semanticnusc/PolarNet/semnusc_dymanicvfe_polarnet_lr1en2_e12.py"
+EVAL_POLAR = dict(EVAL_CYL, config=POLAR, seed=12, per_frame=NO_KERNEL,
+                  tables=None, cpu_frame=False)
+TRAIN_POLAR = dict(TRAIN_CYL, seed=13, batch_size=2, tables=None,
+                   per_step=NO_KERNEL)
 # frames the host pipeline is timed on, one at a time (phases 3d-3j)
-PIPELINE_FRAMES = 4
+PIPELINE_FRAMES = 2
 # card vs CPU through the entry point (phase 3's limits)
 MIN_LABEL_AGREE, MAX_MIOU_POINTS = 0.999, 0.1
 # phase 3d's labels must spread: classes predicted besides the ignore class
@@ -418,13 +492,20 @@ def device_ms(fn, reps=10):
                      f"{PROFILE_TRIES} sessions")
 
 
-def timings(fn, plain, library=None, plain_reps=20):
+# calls timed of a kernel's plain version (its time is a reference, not a
+# yardstick: the kernels are timed over 20)
+PLAIN_REPS = 2
+
+
+def timings(fn, plain, library=None, plain_reps=PLAIN_REPS):
     """The timing keys of a kernel row: CUDA-event means (``ms``,
     ``plain_ms``, ``library_ms``) and device-only means (``device_ms``,
     ``plain_device_ms``, ``library_device_ms``)."""
-    t = dict(ms=cuda_time(fn), plain_ms=cuda_time(plain, reps=plain_reps),
+    t = dict(ms=cuda_time(fn),
+             plain_ms=cuda_time(plain, reps=plain_reps, warmup=1),
              library_ms=None if library is None else cuda_time(library),
-             device_ms=device_ms(fn), plain_device_ms=device_ms(plain),
+             device_ms=device_ms(fn),
+             plain_device_ms=device_ms(plain, reps=plain_reps),
              library_device_ms=None)
     if library is not None:
         t["library_device_ms"] = device_ms(library)
@@ -521,7 +602,7 @@ def check_conv(report, name, feats, rb, cin, cout, gen, dx=False,
             **bounds(dt, nbytes, 2.0 * pairs * cin * cout),
             **timings(lambda: rulebook_conv(ff, rb, w, **kw),
                       lambda: rulebook_conv_plain(ff, rb, w, **kw),
-                      plain_reps=5))
+))
         log(f"  conv {name} {cin}->{cout} {dt}: M={M} pairs={pairs} rows "
             f"read={rows} max_abs_err={err:.3e} (max|plain|={scale:.3e}, "
             f"tol {TOL_CONV[dt]:.1e} rel) bit-identical rerun"
@@ -532,9 +613,11 @@ def check_conv(report, name, feats, rb, cin, cout, gen, dx=False,
         report.append(row)
 
 
-def check_dw(report, name, feats, rb, cin, cout, gen):
-    """rulebook_conv_dw against rulebook_conv_dw_plain in fp32 and bf16:
-    feats [B, Vin, cin] and a random cotangent [B*Vout, cout]."""
+def check_dw(report, name, feats, rb, cin, cout, gen,
+             dtypes=("fp32", "bf16")):
+    """rulebook_conv_dw against rulebook_conv_dw_plain in fp32 and bf16
+    (``dtypes``): feats [B, Vin, cin] and a random cotangent [B*Vout,
+    cout]."""
     import torch
     from lidarseg3d_torch.ops import sparse as sp
     from lidarseg3d_torch.ops.rulebook_conv import (rulebook_conv_dw,
@@ -549,7 +632,8 @@ def check_dw(report, name, feats, rb, cin, cout, gen):
     # cotangent rows the function must read: those with a partner at some
     # tap (a row whose taps all miss adds nothing to any dW[k])
     grows = int(hit.any(0).sum())
-    for dt, torch_dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+    for dt in dtypes:
+        torch_dt = {"fp32": torch.float32, "bf16": torch.bfloat16}[dt]
         ff = sp.flat_features(feats.to(torch_dt))
         g = g32.to(torch_dt).contiguous()
         got = rulebook_conv_dw(ff, rb, g)
@@ -576,7 +660,7 @@ def check_dw(report, name, feats, rb, cin, cout, gen):
             **bounds(dt, nbytes, 2.0 * pairs * cin * cout),
             **timings(lambda: rulebook_conv_dw(ff, rb, g),
                       lambda: rulebook_conv_dw_plain(ff, rb, g),
-                      plain_reps=5))
+))
         log(f"  dW {name} {cin}->{cout} {dt}: M={M} pairs={pairs} rows read="
             f"{rows} gout rows read={grows} max_abs_err={err:.3e} "
             f"(max|plain|={scale:.3e}, tol {TOL_DW[dt]:.1e} rel) "
@@ -650,6 +734,14 @@ def path_rulebooks(books):
     return out
 
 
+def path_taps(rb, spec):
+    """The rulebook a path keeps of the kernels' [3G, B, V] output: all of
+    it, or each group's middle tap for a kernel one tap wide in x."""
+    if spec.kx == 3:
+        return rb
+    return rb.view(spec.groups, 3, *rb.shape[1:])[:, 1].contiguous()
+
+
 def rulebook_rows(s):
     """Valid rows of structure ``s`` (their coordinates are read)."""
     return int(s.num_voxels.clamp(max=s.capacity).sum())
@@ -684,7 +776,8 @@ def check_rulebook_rank(report, name, packed, s, spec, want=None):
     exact(f"rulebook_rank {name}", got, ref)
     exact(f"rulebook_rank {name} (rerun)", run(), ref)
     if want is not None:
-        exact(f"rulebook_rank {name} against the path's rulebook", got, want)
+        exact(f"rulebook_rank {name} against the path's rulebook",
+              path_taps(got, spec), want)
     if report is None:
         return got
     cells, inb, _ = rl.rulebook_queries(c, n, spec)
@@ -698,7 +791,7 @@ def check_rulebook_rank(report, name, packed, s, spec, want=None):
                launches=None, max_abs_err=0.0,
                bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
                library=RULEBOOK_LIBRARY,
-               **timings(run, plain, plain_reps=5))
+               **timings(run, plain))
     row["host_ms"] = host_ms(run)
     take = lambda: torch.take(packed, flat)  # noqa: E731
     row["partial_take_ms"] = cuda_time(take)
@@ -734,10 +827,10 @@ def check_rulebook_keys(report, name, table, s, spec, want=None):
     exact(f"rulebook_decode {name}", got,
           rl.rulebook_decode_plain(values, c, n, spec))
     exact(f"KeyTable rulebook {name} (three launches)",
-          sp.build_rulebook(table, s, spec), got)
+          sp.build_rulebook(table, s, spec), path_taps(got, spec))
     if want is not None:
-        exact(f"KeyTable rulebook {name} against the path's rulebook", got,
-              want)
+        exact(f"KeyTable rulebook {name} against the path's rulebook",
+              path_taps(got, spec), want)
     if report is None:
         return got
     _, inb, _ = rl.rulebook_queries(c, n, spec)
@@ -755,7 +848,7 @@ def check_rulebook_keys(report, name, table, s, spec, want=None):
                    launches=None, max_abs_err=0.0,
                    bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
                    library=RULEBOOK_LIBRARY,
-                   **timings(fn, plain, plain_reps=5))
+                   **timings(fn, plain))
         row["host_ms"] = host_ms(fn)
         report.append(row)
         log(f"  {kern} {name}: exact {fmt_times(row)} host_ms="
@@ -1090,180 +1183,187 @@ def kernel_checks(runs):
     report = []
     gen = torch.Generator().manual_seed(1)
     with torch.inference_mode():
-        model, ex = runs["semkitti"]["model"], runs["semkitti"]["ex0"]
-        V = runs["semkitti"]["path"]["V"]
-        st = model.lidar_input(ex)
-        books = model.backbone_mod.structures(st.structure)
-        s1, s4 = books["s1"], books["s4"]
-        log(f"  semkitti stage voxels: s1={int(s1.num_voxels[0])}/"
-            f"{s1.capacity} s2={int(books['s2'].num_voxels[0])} "
-            f"s3={int(books['s3'].num_voxels[0])} "
-            f"s4={int(s4.num_voxels[0])}/{s4.capacity}")
+        if "semkitti" in runs:
+            model, ex = runs["semkitti"]["model"], runs["semkitti"]["ex0"]
+            st = model.lidar_input(ex)
+            books = model.backbone_mod.structures(st.structure)
+            s1, s4 = books["s1"], books["s4"]
+            log(f"  semkitti stage voxels: s1={int(s1.num_voxels[0])}/"
+                f"{s1.capacity} s2={int(books['s2'].num_voxels[0])} "
+                f"s3={int(books['s3'].num_voxels[0])} "
+                f"s4={int(s4.num_voxels[0])}/{s4.capacity}")
 
-        # conv at its main-path shapes
-        check_conv(report, "subm V=131072", st.features, books["subm1"], 12,
-                   32, gen)
-        f2 = torch.rand(1, s1.capacity, 32, generator=gen).to(DEV)
-        check_conv(report, "strided 131072->65536", f2, books["down2"], 32,
-                   64, gen)
-        f4 = torch.rand(1, s4.capacity, 256, generator=gen).to(DEV)
-        check_conv(report, f"subm V={s4.capacity}", f4, books["subm4"], 256,
-                   128, gen)
-        check_path_rulebooks(report, "semkitti", books)
-        check_single(report, f"semkitti head N={ex['points'].shape[1]}",
-                     books["t1"].packed, s1.spatial_shape,
-                     *head_queries(runs["semkitti"]))
+            # conv at its main-path shapes
+            check_conv(report, "subm V=131072", st.features, books["subm1"], 12,
+                       32, gen)
+            f2 = torch.rand(1, s1.capacity, 32, generator=gen).to(DEV)
+            check_conv(report, "strided 131072->65536", f2, books["down2"], 32,
+                       64, gen)
+            f4 = torch.rand(1, s4.capacity, 256, generator=gen).to(DEV)
+            check_conv(report, f"subm V={s4.capacity}", f4, books["subm4"], 256,
+                       128, gen)
+            check_path_rulebooks(report, "semkitti", books)
+            check_single(report, f"semkitti head N={ex['points'].shape[1]}",
+                         books["t1"].packed, s1.spatial_shape,
+                         *head_queries(runs["semkitti"]))
 
-        # the training step's kernels at its own shapes (B=2): dW, and the
-        # forward kernel as dX under the transposed rulebook (a subm
-        # rulebook's transpose is its own with the taps mirrored; strided
-        # and inverse rulebooks are each other's)
-        tmodel, tex = runs["train"]["model"], runs["train"]["ex0"]
-        tst = tmodel.lidar_input(tex)
-        tb = tmodel.backbone_mod.structures(tst.structure)
-        B, V1 = tst.features.shape[:2]
-        c2, c3, c4 = (tb[f"s{i}"].capacity for i in (2, 3, 4))
+        if "train" in runs:
+            # the training step's kernels at its own shapes (B=2): dW, and the
+            # forward kernel as dX under the transposed rulebook (a subm
+            # rulebook's transpose is its own with the taps mirrored; strided
+            # and inverse rulebooks are each other's)
+            tmodel, tex = runs["train"]["model"], runs["train"]["ex0"]
+            tst = tmodel.lidar_input(tex)
+            tb = tmodel.backbone_mod.structures(tst.structure)
+            B, V1 = tst.features.shape[:2]
+            c2, c3, c4 = (tb[f"s{i}"].capacity for i in (2, 3, 4))
 
-        def rnd(v, c):
-            return torch.rand(B, v, c, generator=gen).to(DEV)
+            def rnd(v, c):
+                return torch.rand(B, v, c, generator=gen).to(DEV)
 
-        check_dw(report, f"subm B={B} V={V1}", tst.features, tb["subm1"], 12,
-                 32, gen)
-        check_dw(report, f"subm B={B} V={V1}", rnd(V1, 32), tb["subm1"], 32,
-                 32, gen)
-        check_dw(report, f"strided B={B} {V1}->{c2}", rnd(V1, 32),
-                 tb["down2"], 32, 64, gen)
-        check_dw(report, f"subm B={B} V={c4}", rnd(c4, 256), tb["subm4"],
-                 256, 128, gen)
-        check_dw(report, f"inverse B={B} {c4}->{c3}", rnd(c4, 128),
-                 tb["inv4"], 128, 128, gen)
-        check_conv(report, f"dX of subm 32->32 B={B} V={V1}", rnd(V1, 32),
-                   tb["subm1"], 32, 32, gen, dx=True)
-        check_conv(report, f"dX of strided 32->64 B={B} {c2}->{V1}",
-                   rnd(c2, 64), tb["inv2"], 64, 32, gen, dx=True)
-        check_conv(report, f"dX of subm 256->128 B={B} V={c4}", rnd(c4, 128),
-                   tb["subm4"], 128, 256, gen, dx=True)
-        check_path_rulebooks(report, "train", tb)
-        tq, tv = head_queries(runs["train"])
-        check_single(report, f"train head B={B} N={tq.shape[1]}",
-                     tb["t1"].packed, tb["s1"].spatial_shape, tq, tv)
-        # the train step's stage-1 table: both samples in one pack
-        ts1 = tb["s1"]
-        tact = co.activity(ts1.coords, ts1.num_voxels, ts1.spatial_shape)
-        check_pack(report, f"train stage-1 B={B} {tact.shape[1] - 1} cells",
-                   tact, tact.shape[1] - 1)
-        del tb, tst, tact
+            check_dw(report, f"subm B={B} V={V1}", tst.features, tb["subm1"], 12,
+                     32, gen)
+            check_dw(report, f"subm B={B} V={V1}", rnd(V1, 32), tb["subm1"], 32,
+                     32, gen)
+            check_dw(report, f"strided B={B} {V1}->{c2}", rnd(V1, 32),
+                     tb["down2"], 32, 64, gen)
+            check_dw(report, f"subm B={B} V={c4}", rnd(c4, 256), tb["subm4"],
+                     256, 128, gen)
+            check_dw(report, f"inverse B={B} {c4}->{c3}", rnd(c4, 128),
+                     tb["inv4"], 128, 128, gen)
+            check_conv(report, f"dX of subm 32->32 B={B} V={V1}", rnd(V1, 32),
+                       tb["subm1"], 32, 32, gen, dx=True)
+            check_conv(report, f"dX of strided 32->64 B={B} {c2}->{V1}",
+                       rnd(c2, 64), tb["inv2"], 64, 32, gen, dx=True)
+            check_conv(report, f"dX of subm 256->128 B={B} V={c4}", rnd(c4, 128),
+                       tb["subm4"], 128, 256, gen, dx=True)
+            check_path_rulebooks(report, "train", tb)
+            tq, tv = head_queries(runs["train"])
+            check_single(report, f"train head B={B} N={tq.shape[1]}",
+                         tb["t1"].packed, tb["s1"].spatial_shape, tq, tv)
+            # the train step's stage-1 table: both samples in one pack
+            ts1 = tb["s1"]
+            tact = co.activity(ts1.coords, ts1.num_voxels, ts1.spatial_shape)
+            check_pack(report, f"train stage-1 B={B} {tact.shape[1] - 1} cells",
+                       tact, tact.shape[1] - 1)
+            del tb, tst, tact
 
-        # lookup + pack on the stage-1 table of this scan
-        act1 = co.activity(s1.coords, s1.num_voxels, s1.spatial_shape)
-        check_pack(report, "stage-1 1387008 cells", act1,
-                   act1.shape[1] - 1)
-        check_pack_graph(act1, act1.shape[1] - 1)
-        check_lookup(report, "stage-1 1387008 cells", books["t1"].packed,
-                     subm_stream(books, 1))
+        if "semkitti" in runs:
+            # lookup + pack on the stage-1 table of this scan
+            act1 = co.activity(s1.coords, s1.num_voxels, s1.spatial_shape)
+            check_pack(report, "stage-1 1387008 cells", act1,
+                       act1.shape[1] - 1)
+            check_pack_graph(act1, act1.shape[1] - 1)
+            check_lookup(report, "stage-1 1387008 cells", books["t1"].packed,
+                         subm_stream(books, 1))
 
-        # semnusc: the conv, lookup and pack at their shapes on that path,
-        # and the merge lookup on its KeyTable stages, from a real scan
-        nmodel, nex = runs["semnusc"]["model"], runs["semnusc"]["ex0"]
-        nst = nmodel.lidar_input(nex)
-        nbooks = nmodel.backbone_mod.structures(nst.structure)
-        ns1, ns4 = nbooks["s1"], nbooks["s4"]
-        log(f"  semnusc stage voxels: " + " ".join(
-            f"s{i}={int(nbooks[f's{i}'].num_voxels[0])}/"
-            f"{nbooks[f's{i}'].capacity}" for i in range(1, 5)))
-        check_conv(report, f"semnusc subm V={ns1.capacity}", nst.features,
-                   nbooks["subm1"], 12, 32, gen)
-        nf2 = torch.rand(1, ns1.capacity, 32, generator=gen).to(DEV)
-        check_conv(report, f"semnusc strided {ns1.capacity}->"
-                   f"{nbooks['s2'].capacity}", nf2, nbooks["down2"], 32, 64,
-                   gen)
-        nf4 = torch.rand(1, ns4.capacity, 256, generator=gen).to(DEV)
-        check_conv(report, f"semnusc subm V={ns4.capacity}", nf4,
-                   nbooks["subm4"], 256, 128, gen)
-        check_dw(report, f"semnusc subm V={ns1.capacity}", nst.features,
-                 nbooks["subm1"], 12, 32, gen)
-        check_path_rulebooks(report, "semnusc", nbooks)
-        s3 = nbooks["s3"]
-        act3 = co.activity(s3.coords, s3.num_voxels, s3.spatial_shape)
-        nce3 = act3.shape[1] - 1
-        check_pack(report, f"semnusc stage-3 {nce3} cells", act3, nce3)
-        check_lookup(report, f"semnusc stage-3 {nce3} cells",
-                     nbooks["t3"].packed, subm_stream(nbooks, 3))
-        for i in (1, 2):
-            Z, Y, X = nbooks[f"s{i}"].spatial_shape
-            check_merge(report, f"semnusc stage-{i} subm {Z * Y * (X + 2)} "
-                        "cells", nbooks[f"t{i}"], subm_stream(nbooks, i))
-        # stage 1's stream in another order: the kernel's contract is any
-        # order, and a tile of shuffled queries spans the whole key set
-        st1 = subm_stream(nbooks, 1)
-        perm = torch.randperm(st1.shape[-1], generator=gen).to(DEV)
-        Z, Y, X = ns1.spatial_shape
-        check_merge(report, f"semnusc stage-1 subm shuffled "
-                    f"{Z * Y * (X + 2)} cells", nbooks["t1"],
-                    st1[..., perm].contiguous())
-        del st1
-        del nbooks, nst, nf2, nf4, act3
+        if "semnusc" in runs:
+            # semnusc: the conv, lookup and pack at their shapes on that path,
+            # and the merge lookup on its KeyTable stages, from a real scan
+            nmodel, nex = runs["semnusc"]["model"], runs["semnusc"]["ex0"]
+            nst = nmodel.lidar_input(nex)
+            nbooks = nmodel.backbone_mod.structures(nst.structure)
+            ns1, ns4 = nbooks["s1"], nbooks["s4"]
+            log(f"  semnusc stage voxels: " + " ".join(
+                f"s{i}={int(nbooks[f's{i}'].num_voxels[0])}/"
+                f"{nbooks[f's{i}'].capacity}" for i in range(1, 5)))
+            check_conv(report, f"semnusc subm V={ns1.capacity}", nst.features,
+                       nbooks["subm1"], 12, 32, gen)
+            nf2 = torch.rand(1, ns1.capacity, 32, generator=gen).to(DEV)
+            check_conv(report, f"semnusc strided {ns1.capacity}->"
+                       f"{nbooks['s2'].capacity}", nf2, nbooks["down2"], 32, 64,
+                       gen)
+            nf4 = torch.rand(1, ns4.capacity, 256, generator=gen).to(DEV)
+            check_conv(report, f"semnusc subm V={ns4.capacity}", nf4,
+                       nbooks["subm4"], 256, 128, gen)
+            check_dw(report, f"semnusc subm V={ns1.capacity}", nst.features,
+                     nbooks["subm1"], 12, 32, gen)
+            check_path_rulebooks(report, "semnusc", nbooks)
+            s3 = nbooks["s3"]
+            act3 = co.activity(s3.coords, s3.num_voxels, s3.spatial_shape)
+            nce3 = act3.shape[1] - 1
+            check_pack(report, f"semnusc stage-3 {nce3} cells", act3, nce3)
+            check_lookup(report, f"semnusc stage-3 {nce3} cells",
+                         nbooks["t3"].packed, subm_stream(nbooks, 3))
+            for i in (1, 2):
+                Z, Y, X = nbooks[f"s{i}"].spatial_shape
+                check_merge(report, f"semnusc stage-{i} subm {Z * Y * (X + 2)} "
+                            "cells", nbooks[f"t{i}"], subm_stream(nbooks, i))
+            # stage 1's stream in another order: the kernel's contract is any
+            # order, and a tile of shuffled queries spans the whole key set
+            st1 = subm_stream(nbooks, 1)
+            perm = torch.randperm(st1.shape[-1], generator=gen).to(DEV)
+            Z, Y, X = ns1.spatial_shape
+            check_merge(report, f"semnusc stage-1 subm shuffled "
+                        f"{Z * Y * (X + 2)} cells", nbooks["t1"],
+                        st1[..., perm].contiguous())
+            del st1
+            del nbooks, nst, nf2, nf4, act3
 
-        # the eval path (phase 3d): the published 0.1 m config's tables
-        # and rulebooks from a real scan of the tree, stages 1-2 KeyTables
-        emodel, eex = runs["eval"]["model"], runs["eval"]["ex0"]
-        est = emodel.lidar_input(eex)
-        eb = emodel.backbone_mod.structures(est.structure)
-        ecap = eb["s1"].capacity
-        log("  eval stage voxels: " + " ".join(
-            f"s{i}={int(eb[f's{i}'].num_voxels[0])}/{eb[f's{i}'].capacity}"
-            for i in range(1, 5)))
-        check_conv(report, f"eval subm V={ecap}", est.features, eb["subm1"],
-                   12, 32, gen)
-        ef2 = torch.rand(1, ecap, 32, generator=gen).to(DEV)
-        check_conv(report, f"eval strided {ecap}->{eb['s2'].capacity}", ef2,
-                   eb["down2"], 32, 64, gen)
-        check_path_rulebooks(report, "eval", eb)
-        for i in (1, 2):
-            Z, Y, X = eb[f"s{i}"].spatial_shape
-            check_merge(report, f"eval stage-{i} subm {Z * Y * (X + 2)} "
-                        "cells", eb[f"t{i}"], subm_stream(eb, i))
-        es3 = eb["s3"]
-        eact3 = co.activity(es3.coords, es3.num_voxels, es3.spatial_shape)
-        ence3 = eact3.shape[1] - 1
-        check_pack(report, f"eval stage-3 {ence3} cells", eact3, ence3)
-        check_lookup(report, f"eval stage-3 {ence3} cells", eb["t3"].packed,
-                     subm_stream(eb, 3))
-        del eb, est, ef2, eact3
+        if "eval" in runs:
+            # the eval path (phase 3d): the published 0.1 m config's tables
+            # and rulebooks from a real scan of the tree, stages 1-2 KeyTables
+            emodel, eex = runs["eval"]["model"], runs["eval"]["ex0"]
+            est = emodel.lidar_input(eex)
+            eb = emodel.backbone_mod.structures(est.structure)
+            ecap = eb["s1"].capacity
+            log("  eval stage voxels: " + " ".join(
+                f"s{i}={int(eb[f's{i}'].num_voxels[0])}/{eb[f's{i}'].capacity}"
+                for i in range(1, 5)))
+            check_conv(report, f"eval subm V={ecap}", est.features, eb["subm1"],
+                       12, 32, gen)
+            ef2 = torch.rand(1, ecap, 32, generator=gen).to(DEV)
+            check_conv(report, f"eval strided {ecap}->{eb['s2'].capacity}", ef2,
+                       eb["down2"], 32, 64, gen)
+            check_path_rulebooks(report, "eval", eb)
+            for i in (1, 2):
+                Z, Y, X = eb[f"s{i}"].spatial_shape
+                check_merge(report, f"eval stage-{i} subm {Z * Y * (X + 2)} "
+                            "cells", eb[f"t{i}"], subm_stream(eb, i))
+            es3 = eb["s3"]
+            eact3 = co.activity(es3.coords, es3.num_voxels, es3.spatial_shape)
+            ence3 = eact3.shape[1] - 1
+            check_pack(report, f"eval stage-3 {ence3} cells", eact3, ence3)
+            check_lookup(report, f"eval stage-3 {ence3} cells", eb["t3"].packed,
+                         subm_stream(eb, 3))
+            del eb, est, ef2, eact3
 
-        # the train entry path (phase 3e): the published config at B=2,
-        # its conv, dX and dW at the stage-1 shape (2 x up to 160000 rows),
-        # every rulebook on both table kinds and the merge on its stage-1
-        # and stage-2 KeyTables
-        xmodel, xex = runs["train_entry"]["model"], runs["train_entry"]["ex0"]
-        xst = xmodel.lidar_input(xex)
-        xb = xmodel.backbone_mod.structures(xst.structure)
-        XB, XV = xst.features.shape[:2]
-        log("  train entry stage voxels: " + " ".join(
-            f"s{i}={xb[f's{i}'].num_voxels.tolist()}/{xb[f's{i}'].capacity}"
-            for i in range(1, 5)))
-        x32 = torch.rand(XB, XV, 32, generator=gen).to(DEV)
-        check_conv(report, f"train01 subm B={XB} V={XV}", xst.features,
-                   xb["subm1"], 12, 32, gen)
-        check_conv(report, f"dX of subm 32->32 train01 B={XB} V={XV}", x32,
-                   xb["subm1"], 32, 32, gen, dx=True)
-        check_dw(report, f"train01 subm B={XB} V={XV}", xst.features,
-                 xb["subm1"], 12, 32, gen)
-        check_dw(report, f"train01 subm B={XB} V={XV}", x32, xb["subm1"], 32,
-                 32, gen)
-        check_path_rulebooks(report, "train01", xb)
-        for i in (1, 2):
-            Z, Y, X = xb[f"s{i}"].spatial_shape
-            check_merge(report, f"train01 stage-{i} subm B={XB} "
-                        f"{Z * Y * (X + 2)} cells", xb[f"t{i}"],
-                        subm_stream(xb, i))
-        del xb, xst, x32
+        if "train_entry" in runs:
+            # the train entry path (phase 3e): the published config at B=2,
+            # its conv, dX and dW at the stage-1 shape (2 x up to 160000 rows),
+            # every rulebook on both table kinds and the merge on its stage-1
+            # and stage-2 KeyTables
+            xmodel, xex = runs["train_entry"]["model"], runs["train_entry"]["ex0"]
+            xst = xmodel.lidar_input(xex)
+            xb = xmodel.backbone_mod.structures(xst.structure)
+            XB, XV = xst.features.shape[:2]
+            log("  train entry stage voxels: " + " ".join(
+                f"s{i}={xb[f's{i}'].num_voxels.tolist()}/{xb[f's{i}'].capacity}"
+                for i in range(1, 5)))
+            x32 = torch.rand(XB, XV, 32, generator=gen).to(DEV)
+            check_conv(report, f"train01 subm B={XB} V={XV}", xst.features,
+                       xb["subm1"], 12, 32, gen)
+            check_conv(report, f"dX of subm 32->32 train01 B={XB} V={XV}", x32,
+                       xb["subm1"], 32, 32, gen, dx=True)
+            check_dw(report, f"train01 subm B={XB} V={XV}", xst.features,
+                     xb["subm1"], 12, 32, gen)
+            check_dw(report, f"train01 subm B={XB} V={XV}", x32, xb["subm1"], 32,
+                     32, gen)
+            check_path_rulebooks(report, "train01", xb)
+            for i in (1, 2):
+                Z, Y, X = xb[f"s{i}"].spatial_shape
+                check_merge(report, f"train01 stage-{i} subm B={XB} "
+                            f"{Z * Y * (X + 2)} cells", xb[f"t{i}"],
+                            subm_stream(xb, i))
+            del xb, xst, x32
 
         check_nusc_paths(report, runs, gen)
         check_sdseg_paths(report, runs, gen)
+        check_cyl_paths(report, runs, gen)
 
         # the 0.1 m SemanticKITTI grid: 41 x 1504 x (1504 + 2) cells, with
-        # the scan's voxels spread over it key-sorted
+        # a semkitti scan's voxel count spread over it key-sorted
+        V = 131072
         Z, Y, X = BIG_GRID
         nce = Z * Y * (X + 2)
         keys = torch.randperm(Z * Y * X, generator=gen)[:V].sort().values
@@ -1299,6 +1399,8 @@ def check_nusc_paths(report, runs, gen):
     import torch
 
     for name in ("eval_nu", "train_nu"):
+        if name not in runs:
+            continue
         ymodel, yex = runs[name]["model"], runs[name]["ex0"]
         yst = ymodel.lidar_input(yex)
         yb = ymodel.backbone_mod.structures(yst.structure)
@@ -1340,6 +1442,19 @@ def check_sdseg_paths(report, runs, gen):
     import torch
     from lidarseg3d_torch.ops import coords as co
 
+    for name in ("sd_eval_tta", "sd_nu_tta"):
+        if name not in runs:
+            continue
+        m, x = runs[name]["model"], runs[name]["ex0"]
+        with torch.inference_mode():
+            b = m.backbone_mod.structures(m.lidar_input(x).structure)
+            Z, Y, X = b["s1"].spatial_shape
+            check_merge(report, f"{name} stage-1 subm B={b['s1'].batch_size}"
+                        f" (TTA rows) {Z * Y * (X + 2)} cells", b["t1"],
+                        subm_stream(b, 1))
+        del b
+    if "sd_train" not in runs:
+        return
     model, ex = runs["sd_train"]["model"], runs["sd_train"]["ex0"]
     with torch.no_grad():
         st = model.lidar_input(ex)
@@ -1369,15 +1484,131 @@ def check_sdseg_paths(report, runs, gen):
     nce3 = act3.shape[1] - 1
     check_pack(report, f"sd_train stage-3 B={B} {nce3} cells", act3, nce3)
     del books, st, act3
-    for name in ("sd_eval_tta", "sd_nu_tta"):
-        m, x = runs[name]["model"], runs[name]["ex0"]
-        with torch.inference_mode():
-            b = m.backbone_mod.structures(m.lidar_input(x).structure)
-            Z, Y, X = b["s1"].spatial_shape
-            check_merge(report, f"{name} stage-1 subm B={b['s1'].batch_size}"
-                        f" (TTA rows) {Z * Y * (X + 2)} cells", b["t1"],
-                        subm_stream(b, 1))
-        del b
+
+
+def cyl_rulebooks(books):
+    """The 24 rulebooks of Cylinder3D_Asymm_3d_spconv.structures: (name,
+    the structure whose rows it fills, the stage whose table it reads,
+    spec, the path's rulebook)."""
+    from lidarseg3d_torch.ops import sparse as sp
+
+    ss = [books[f"s{i}"] for i in range(1, 6)]
+    ts = [books[f"t{i}"] for i in range(1, 6)]
+    out = []
+    for key, rb in books.items():
+        if not isinstance(key, tuple):
+            continue
+        a, b = key
+        i = next(j for j, s in enumerate(ss) if id(s) == a)
+        if isinstance(b, tuple):  # a subm rulebook of kernel b
+            out.append((f"subm{i + 1} {b}", ss[i], i + 1,
+                        sp.subm_spec(ts[i], ss[i], b), rb))
+            continue
+        o = next(j for j, s in enumerate(ss) if id(s) == b)
+        stride = (2, 2, 2) if i < 2 else (2, 2, 1)
+        sstr = "".join(str(v) for v in stride)
+        out.append((f"down{o + 1} s{sstr}", ss[o], i + 1,
+                    sp.strided_spec(ts[i], ss[i], 3, stride, 1), rb[0]))
+        out.append((f"inv{o + 1} s{sstr}", ss[i], o + 1,
+                    sp.inverse_spec(ts[o], ss[o], 3, stride, 1), rb[1]))
+    return out
+
+
+def check_cyl_paths(report, runs, gen):
+    """Phase 4's rows of the Cylinder3D paths (phases 3k, 3l): from a real
+    frame of cyl-eval (B=1) and a real batch of cyl-train (B=2), every
+    rulebook of the structures on both table kinds (K = 9 and 3, the
+    x-width-1 kernels, strides (2,2,2) and (2,2,1) strided and inverse),
+    the points' lookup on the stage-1 KeyTable through the merge kernel
+    (the queries in point order, not raster order); the conv at K = 9 and
+    K = 3 (the width-1 and the (1,1,3) kernels), the 17-class classifier
+    64->17 and its dX 17->64, the (2,2,1) strided and inverse convs; at B=2
+    the dW of the same shapes."""
+    import torch
+    from lidarseg3d_torch.models.backbones.cylinder3d import K13, K33
+    from lidarseg3d_torch.ops import coords as co
+    from lidarseg3d_torch.ops.rank_lookup import extended_cells
+
+    for name in ("cyl_eval", "cyl_train"):
+        if name not in runs:
+            continue
+        model, ex = runs[name]["model"], runs[name]["ex0"]
+        with torch.no_grad():
+            st, books = lidar_books(model, ex)
+            vc = model.reader_mod(ex["points"], ex["point_valid"])[
+                "point_vcoors"]
+        B, V = st.features.shape[:2]
+        ss = [books[f"s{i}"] for i in range(1, 6)]
+        log(f"  {name} stage voxels: " + " ".join(
+            f"s{i + 1}={s.num_voxels.tolist()}/{s.capacity}"
+            for i, s in enumerate(ss)))
+        other = {}
+        for i, s in enumerate(ss, start=1):
+            build = (co.build_rank_table if isinstance(books[f"t{i}"],
+                                                       co.KeyTable)
+                     else co.build_key_table)
+            other[i] = build(s.coords, s.num_voxels, s.spatial_shape)
+        rbs = cyl_rulebooks(books)
+        for rname, s, i, spec, want in rbs:
+            label = f"{name} {rname} B={s.batch_size} V={s.capacity}"
+            table = books[f"t{i}"]
+            timed = report if rname.startswith(("subm1", "down4", "inv4",
+                                                "subm3")) else None
+            if isinstance(table, co.KeyTable):
+                check_rulebook_keys(timed, label, table, s, spec, want)
+                check_rulebook_rank(None, label, other[i].packed, s, spec,
+                                    want)
+            else:
+                check_rulebook_rank(timed, label, table.packed, s, spec,
+                                    want)
+                check_rulebook_keys(None, label, other[i], s, spec, want)
+        log(f"  {name}: all {len(rbs)} rulebooks exact on both table kinds")
+        # the point -> voxel lookup (coords.lookup_key): the points' cells,
+        # clamped into the grid, in point order
+        Z, Y, X = ss[0].spatial_shape
+        cells = extended_cells(vc, ss[0].spatial_shape).clamp(
+            0, Z * Y * (X + 2) - 1).to(torch.int32)[None].contiguous()
+        check_merge(report, f"{name} points->voxels B={B} "
+                    f"N={vc.shape[1]} {Z * Y * (X + 2)} cells",
+                    books["t1"], cells)
+        del other, cells
+
+        def rnd(v, c):
+            return torch.rand(B, v, c, generator=gen).to(DEV)
+
+        down4 = books[(id(ss[2]), id(ss[3]))]
+        c3, c4 = ss[2].capacity, ss[3].capacity
+        rb31 = books[(id(ss[0]), (3, 1, 1))]
+        rb113 = books[(id(ss[0]), (1, 1, 3))]
+        if name == "cyl_eval":
+            check_conv(report, f"{name} subm (1,3,3) K=9 V={V}", st.features,
+                       books[(id(ss[0]), K13)], 16, 16, gen)
+            check_conv(report, f"{name} subm (3,1,1) K=3 V={V}", rnd(V, 32),
+                       rb31, 32, 32, gen)
+            check_conv(report, f"{name} subm (1,1,3) K=3 V={V}", rnd(V, 32),
+                       rb113, 32, 32, gen)
+            check_conv(report, f"{name} classifier V={V}", rnd(V, 64),
+                       books[(id(ss[0]), K33)], 64, 17, gen,
+                       dtypes=("fp32",))
+            check_conv(report, f"{name} strided (2,2,1) {c3}->{c4}",
+                       rnd(c3, 128), down4[0], 128, 128, gen)
+            check_conv(report, f"{name} inverse (2,2,1) {c4}->{c3}",
+                       rnd(c4, 128), down4[1], 128, 128, gen)
+        else:
+            check_conv(report, f"dX of the classifier 17->64 {name} B={B} "
+                       f"V={V}", rnd(V, 17), books[(id(ss[0]), K33)], 17,
+                       64, gen, dx=True, dtypes=("fp32",))
+            check_conv(report, f"dX of subm (3,1,1) 32->32 {name} B={B} "
+                       f"V={V}", rnd(V, 32), rb31, 32, 32, gen, dx=True)
+            check_dw(report, f"{name} subm (1,3,3) K=9 B={B} V={V}",
+                     st.features, books[(id(ss[0]), K13)], 16, 16, gen)
+            check_dw(report, f"{name} subm (3,1,1) K=3 B={B} V={V}",
+                     rnd(V, 32), rb31, 32, 32, gen)
+            check_dw(report, f"{name} classifier B={B} V={V}", rnd(V, 64),
+                     books[(id(ss[0]), K33)], 64, 17, gen, dtypes=("fp32",))
+            check_dw(report, f"{name} strided (2,2,1) B={B} {c3}->{c4}",
+                     rnd(c3, 128), down4[0], 128, 128, gen)
+        del books, st, vc
 
 
 def check_outputs(ret, pred, N, ncls):
@@ -1522,11 +1753,11 @@ def run_path(name, p):
     if p["cfg"].get("img_bf16"):
         bf16_branch_check(model, cfg, exs[0])
 
-    # per-scan latency: warm, then 3 rounds over the distinct scans
+    # per-scan latency: warm, then 2 rounds over the distinct scans
     ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for i in range(3 * NSCANS):
+    for i in range(2 * NSCANS):
         a, b = ev(), ev()
         a.record()
         ret, bat = model(exs[i % NSCANS])
@@ -1873,6 +2104,46 @@ def calibrate_bn(model, ex):
     return model
 
 
+def with_loader(cfg_path, path, mode):
+    """A copy of the config file at ``path`` whose loader runs in ``mode``
+    (the published one otherwise). The shm workers' start costs ~10-12 s a
+    loader on the card's host (spawned interpreters importing torch),
+    more than a lidar-only run of a few frames takes, so the runs whose
+    subject is not the loader take threads."""
+    with open(cfg_path) as f:
+        text = f.read()
+    with open(path, "w") as f:
+        f.write(text + f"\ndata['worker_mode'] = {mode!r}\n")
+    return path
+
+
+def caps(cfg):
+    """The loader's capacities of a config, the tools' defaults where it
+    names none (a points-only config names no voxel capacity)."""
+    cap = cfg.get("capacity", {})
+    return dict(max_voxels=cap.get("max_voxels", 160000),
+                max_points=cap.get("max_points", 140000))
+
+
+def lidar_books(model, ex):
+    """The sparse input of an example and its backbone's structures, tables
+    and rulebooks (None and None for a dense-BEV model)."""
+    r = model.lidar_input(ex)
+    st = r.get("sparse_tensor") if isinstance(r, dict) else r
+    if st is None:
+        return None, None
+    return st, model.backbone_mod.structures(st.structure)
+
+
+def stage_tables(books):
+    """The stage tables t1, t2, ... of a backbone's structures."""
+    out, i = [], 1
+    while f"t{i}" in books:
+        out.append(books[f"t{i}"])
+        i += 1
+    return out
+
+
 def first_example(dataset, cap, ishape, device):
     """Frame 0 of ``dataset`` through the port's loader, on ``device``."""
     from lidarseg3d_torch.apis.train import example_to_device
@@ -2042,8 +2313,10 @@ def eval_card_vs_cpu(tmp):
     write_semantickitti_tree(data_root, ("00",), frames=20,
                              points=(1200, 1500), seed=5,
                              image_hw=(64, 128), max_range=6.0)
-    cfg_path = write_eval_config(os.path.join(tmp, "mini", "mini.py"),
-                                 os.path.join(here, EVAL["mini"]), data_root)
+    cfg_path = with_loader(
+        write_eval_config(os.path.join(tmp, "mini", "mini.py"),
+                          os.path.join(here, EVAL["mini"]), data_root),
+        os.path.join(tmp, "mini", "mini_thread.py"), "thread")
     cfg = Config.fromfile(cfg_path)
     model = build_detector(cfg.model.to_dict(), device="cpu", seed=3)
     calibrate_bn(model, first_example(build_dataset(cfg.data.val.to_dict()),
@@ -2108,11 +2381,14 @@ def published_frame_on_cpu(e, cfg_path, cfg, tmp, work, card, phase,
     one = tempfile.mkdtemp(prefix="frame0_")
     try:
         write_frame0(e, cfg, tmp, one)
+        # one frame: the loader's threads (no shm workers to spawn)
+        cfg_one = with_loader(cfg_path, os.path.join(one, "frame0.py"),
+                              "thread")
         cwd = os.getcwd()
         os.chdir(one)
         try:
             t0 = time.perf_counter()
-            cpu = tool.main([cfg_path, "--checkpoint", work, "--work_dir",
+            cpu = tool.main([cfg_one, "--checkpoint", work, "--work_dir",
                              os.path.join(one, "work"), "--device", "cpu",
                              *args])
             secs = time.perf_counter() - t0
@@ -2169,12 +2445,16 @@ def run_eval_path(e=EVAL, phase="3d"):
     here = os.path.dirname(os.path.abspath(__file__))
     cfg_path = os.path.join(here, e["config"])
     cfg = Config.fromfile(cfg_path)
-    cap, ishape = cfg.capacity, tool.input_shape_of(cfg)
+    cap, ishape = caps(cfg), tool.input_shape_of(cfg)
     nusc = "scenes" in e
     tta = bool(e.get("tta"))
     args = ["--tta"] if tta else []
     rows = int(cfg.tta_cfg.num_tta_tranforms) if tta else 1
     tmp = tempfile.mkdtemp(prefix=f"eval_{phase}_")
+    if e.get("loader"):
+        cfg_path = with_loader(cfg_path, os.path.join(tmp, "cfg.py"),
+                               e["loader"])
+        cfg = Config.fromfile(cfg_path)
     try:
         # the config's paths are relative: the tree goes under tmp and the
         # entry point runs with tmp as its working directory
@@ -2231,8 +2511,10 @@ def run_eval_path(e=EVAL, phase="3d"):
         per_scan = {k: n / max(nscan, 1) for k, n in launches.items()}
         log(f"  launches over {nscan} scans: {launches}; per scan "
             f"{per_scan}")
-        # the stage tables are (keys, keys, rank, rank), as on semnusc
-        want = {k: nscan * c for k, c in KEYS_KEYS_RANK_RANK.items()}
+        # per frame: the MSeg3D / SegNet paths' stage tables are (keys,
+        # keys, rank, rank), as on semnusc
+        want = {k: nscan * c for k, c in e.get(
+            "per_frame", KEYS_KEYS_RANK_RANK).items()}
         if nscan != nframes or launches != want:
             raise SystemExit(f"phase {phase}: {nscan} scans, launches "
                              f"{launches}, expected {want}")
@@ -2271,11 +2553,9 @@ def run_eval_path(e=EVAL, phase="3d"):
         ex0 = first_example(dataset_in(cfg, "val", tmp, tta), cap, ishape,
                             DEV)
         with torch.inference_mode():
-            books = model.backbone_mod.structures(
-                model.lidar_input(ex0).structure)
+            _, books = lidar_books(model, ex0)
         tables = []
-        for i in range(1, 5):
-            t = books[f"t{i}"]
+        for i, t in enumerate(stage_tables(books or {}), start=1):
             if isinstance(t, co.KeyTable):
                 tables.append(f"s{i} keys")
             else:
@@ -2284,10 +2564,13 @@ def run_eval_path(e=EVAL, phase="3d"):
                               f"{mib:.2f} MiB")
                 if mib > 12:
                     raise SystemExit(f"stage {i}: a RankTable above 12 MiB")
+        kinds = tuple(t.split()[1] for t in tables) or None
+        if kinds != e.get("tables", ("keys", "keys", "rank", "rank")):
+            raise SystemExit(f"phase {phase}: stage tables {tables}")
         del books
-        log(f"  stage tables of scan 0: {', '.join(tables)}; no RankTable "
-            "above 12 MiB, so no lookup took the JAX package's "
-            "_lookup_gather_hbm route (0 launches)")
+        log(f"  stage tables of scan 0: {', '.join(tables) or 'none (BEV)'}"
+            "; no RankTable above 12 MiB, so no lookup took the JAX "
+            "package's _lookup_gather_hbm route (0 launches)")
 
         # the device histogram against the host one of the predictions
         # (of the frames alone: no TTA merge on the device)
@@ -2317,8 +2600,9 @@ def run_eval_path(e=EVAL, phase="3d"):
             log(f"  read_jpeg_bgr of one 1600x900 camera ({jpeg['bytes']} "
                 f"bytes): {jpeg['image_ms']:.2f} ms, of which the Huffman "
                 f"decoding (C) {jpeg['huffman_ms']:.2f} ms")
-        frame0 = published_frame_on_cpu(e, cfg_path, cfg, tmp, work,
-                                        out["detections"], phase, args)
+        frame0 = (published_frame_on_cpu(e, cfg_path, cfg, tmp, work,
+                                         out["detections"], phase, args)
+                  if e.get("cpu_frame", True) else None)
         agreement = eval_card_vs_cpu(tmp) if e.get("mini") else None
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2414,7 +2698,7 @@ def loader_alone_ms(ds, cfg, B, modes):
     layout) and over epoch 1 (the workers already up)."""
     from lidarseg3d_torch.datasets import SegDataLoader
 
-    cap = cfg.capacity
+    cap = caps(cfg)
     n = cfg.data.get("workers_per_gpu", 4)
     out = {}
     for mode in modes:
@@ -2432,6 +2716,123 @@ def loader_alone_ms(ds, cfg, B, modes):
             f"frames an epoch, {res[0]:.2f} ms a batch over epoch 0 (its "
             f"start included), {res[1]:.2f} over epoch 1")
     return out
+
+
+def write_pretrained_hrnet(tmp, img_bb):
+    """A seeded HRNet-w18 in mmcv's names and layout (every key and shape
+    of tests/data/hrnetv2_w18_manifest.json, the real checkpoint's),
+    saved with torch.save and converted by the port's
+    tools/convert_hrnet_checkpoint.py to the config's ``pretrained`` path
+    under ``tmp`` (where the train tool runs). -> {"mmcv": the tensors,
+    "seconds": of the conversion, "path"}."""
+    import numpy as np
+    import torch
+    from lidarseg3d_torch.tools import convert_hrnet_checkpoint as conv
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "tests", "data",
+                           "hrnetv2_w18_manifest.json")) as f:
+        entries = json.load(f)["entries"]
+    rng = np.random.default_rng(17)
+    sd = {}
+    for key, shape in entries:
+        if key.endswith("running_var") or (key.endswith("weight")
+                                           and len(shape) == 1):
+            v = rng.uniform(0.5, 1.5, shape)
+        elif len(shape) == 4:
+            fan = shape[1] * shape[2] * shape[3]
+            v = rng.uniform(-1, 1, shape) * np.sqrt(3.0 / fan)
+        else:
+            v = rng.normal(0.0, 0.1, shape)
+        sd[key] = torch.from_numpy(v.astype(np.float32))
+    pth = os.path.join(tmp, "hrnetv2_w18_mmcv.pth")
+    torch.save({"state_dict": sd}, pth)
+    out = os.path.join(tmp, img_bb["pretrained"])
+    t0 = time.perf_counter()
+    conv.main([pth, out, "--width", "18"])
+    return dict(mmcv=sd, seconds=time.perf_counter() - t0, path=out,
+                layout=conv.mmcv_layout(conv.HRNET_EXTRA[18]))
+
+
+def hrnet_grab():
+    """A TrainerHook that keeps the image backbone's state_dict as the run
+    starts (after the train tool's pretrained import)."""
+    from lidarseg3d_torch.apis.train import TrainerHook
+
+    class Grab(TrainerHook):
+        state = None
+
+        def before_run(self, state, loop):
+            hb = getattr(state.model, "img_backbone_mod", None)
+            if hb is not None:
+                self.state = {k: v.detach().cpu().clone()
+                              for k, v in hb.state_dict().items()}
+
+    return Grab()
+
+
+def check_pretrained_import(hrnet, got, work, phase):
+    """The HRNet the run started from equals the seeded mmcv one bit for
+    bit, tensor by tensor by name (the stride-2 fuse convs included), and
+    the train log reports every tensor loaded and none skipped."""
+    from lidarseg3d_torch.convert import state_dict_to_flax
+    from lidarseg3d_torch.models.img_backbones.hrnet import HRNet
+    from lidarseg3d_torch.tools import convert_hrnet_checkpoint as conv
+    import torch
+
+    bad = []
+    for key, v in hrnet["mmcv"].items():
+        prefix, _, leaf = key.rpartition(".")
+        path, m = hrnet["layout"][prefix]
+        parts = list(path)
+        if m is not None:
+            parts[parts.index("scan") + 1] = str(m)
+        name = ".".join(parts) + "." + leaf
+        if name not in got or not torch.equal(got[name], v):
+            bad.append(key)
+    with torch.device("meta"):
+        n = sum(a.size > 0 for a in _leaves(state_dict_to_flax(
+            HRNet(extra=conv.HRNET_EXTRA[18]))))
+    with open(os.path.join(work, "train.log")) as f:
+        log_text = f.read()
+    want = f"pretrain report: loaded {n}, skipped 0, unexpected 0"
+    if bad or len(hrnet["mmcv"]) != len(got) or want not in log_text:
+        raise SystemExit(f"phase {phase}: the pretrained HRNet import: "
+                         f"{len(bad)} tensors differ ({bad[:3]}), "
+                         f"{len(got)} model tensors for "
+                         f"{len(hrnet['mmcv'])}; log has '{want}': "
+                         f"{want in log_text}")
+    hrnet["report"] = dict(loaded=n, skipped=0, unexpected=0,
+                           tensors=len(got))
+    log(f"  pretrained import: the run started from the seeded HRNet-w18 "
+        f"bit for bit ({len(got)} tensors by name, the 47 stride-2 fuse "
+        f"convs included); train.log: '{want}'")
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def final_state(cfg_path, work, latest):
+    """The train state of the run's last checkpoint (phases 4 and 5 read
+    its model where no resume ran)."""
+    from lidarseg3d_torch.apis.train import (create_train_state,
+                                             load_checkpoint)
+    from lidarseg3d_torch.models import build_detector
+    from lidarseg3d_torch.solver.optim import build_one_cycle_optimizer
+    from lidarseg3d_torch.utils.config import Config
+
+    cfg = Config.fromfile(cfg_path)
+    opt, _ = build_one_cycle_optimizer(dict(cfg.optimizer),
+                                       dict(cfg.lr_config), 1)
+    state = create_train_state(
+        build_detector(cfg.model.to_dict(), device=DEV), opt)
+    load_checkpoint(work, state, int(latest.split("_")[1]))
+    return state
 
 
 def run_train_entry(t=TRAIN_ENTRY, e=EVAL, phase="3e"):
@@ -2466,10 +2867,14 @@ def run_train_entry(t=TRAIN_ENTRY, e=EVAL, phase="3e"):
         base = Config.fromfile(os.path.join(here, e["config"]))
         if nusc:
             cfg_path = os.path.join(here, e["config"])
+            if t.get("loader"):
+                cfg_path = with_loader(cfg_path, os.path.join(tmp, "cfg.py"),
+                                       t["loader"])
             secs = write_nusc_tree(tmp, base, t)
             what = (f"train scenes {list(t['scenes'])}, {t['samples']} key "
                     f"frames each of {t['points'][0]}-{t['points'][1]} "
-                    "points and six 1600x900 JPEGs")
+                    "points and " + ("six 1600x900 JPEGs" if t.get(
+                        "cams", True) else "no camera"))
         else:
             seqs = list(base.train_seq)
             data_root = os.path.join(tmp, "sequences")
@@ -2487,21 +2892,28 @@ def run_train_entry(t=TRAIN_ENTRY, e=EVAL, phase="3e"):
                     f"{t['points'][0]}-{t['points'][1]} points and {W}x{H} "
                     "PNGs")
         cfg = Config.fromfile(cfg_path)
-        cap, ishape = cfg.capacity, eval_tool.input_shape_of(cfg)
-        B = cfg.data.samples_per_gpu
+        cap, ishape = caps(cfg), eval_tool.input_shape_of(cfg)
+        B = t.get("batch_size") or cfg.data.samples_per_gpu
         mode = default_worker_mode(cfg.data)
         img_bb = cfg.model.get("img_backbone")
+        hrnet = None
+        if img_bb and t.get("pretrained_import"):
+            hrnet = write_pretrained_hrnet(tmp, img_bb)
         log(f"  tree: {what} written in {secs:.2f} s; B={B}, grid {ishape}, "
             f"capacity {dict(cap)}, loader {mode} "
             f"x{cfg.data.workers_per_gpu}, pretrained "
-            + (f"{img_bb.get('pretrained')} (missing: not loaded)" if img_bb
-               else "none (no image backbone)"))
-        if nusc and mode != "shm":
+            + ("none (no image backbone)" if not img_bb
+               else f"{img_bb.get('pretrained')} (missing: not loaded)"
+               if hrnet is None else f"{img_bb.get('pretrained')}, "
+               f"converted from a seeded mmcv HRNet-w18 state_dict "
+               f"({len(hrnet['mmcv'])} tensors) by the port's converter in "
+               f"{hrnet['seconds']:.2f} s"))
+        if nusc and mode != t.get("loader", "shm"):
             raise SystemExit(f"phase {phase}: the loader would run in "
                              f"{mode} mode, not shm ({os.cpu_count()} CPUs)")
         work = os.path.join(tmp, "work")
         args = [cfg_path, "--work_dir", work, "--max_steps_per_epoch",
-                str(t["steps"]), "--device", DEV]
+                str(t["steps"]), "--device", DEV, "--batch_size", str(B)]
 
         ws = wrappers()
         record, timings = {}, []
@@ -2511,10 +2923,13 @@ def run_train_entry(t=TRAIN_ENTRY, e=EVAL, phase="3e"):
         cwd = os.getcwd()
         os.chdir(tmp)  # the config's relative paths (pretrained: missing)
         try:
+            grab = hrnet_grab()
             tool.main(args + ["--total_epochs", str(t["epochs"])],
-                      hooks=[train_entry_hook(ws, t["per_step"], record,
-                                              phase)],
+                      hooks=[grab, train_entry_hook(ws, t["per_step"],
+                                                    record, phase)],
                       timings=timings)
+            if hrnet is not None:
+                check_pretrained_import(hrnet, grab.state, work, phase)
             torch.cuda.synchronize()
             launches = {k: w.launches for k, w in ws.items()}
             peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2554,21 +2969,27 @@ def run_train_entry(t=TRAIN_ENTRY, e=EVAL, phase="3e"):
                     self.first = getattr(self, "first", global_step)
 
             check = Check()
-            out = tool.main(args + ["--resume_from", "--total_epochs",
-                                    str(t["epochs"] + 1)],
-                            hooks=[check, train_entry_hook(
-                                ws, t["per_step"], record, phase)])
+            out = None
+            if t.get("resume", True):
+                out = tool.main(args + ["--resume_from", "--total_epochs",
+                                        str(t["epochs"] + 1)],
+                                hooks=[check, train_entry_hook(
+                                    ws, t["per_step"], record, phase)])
         finally:
             os.chdir(cwd)
-        if check.diff or check.start != (nsteps, nsteps) \
+        if out is None:
+            log("  no resume on this path")
+            out = dict(state=final_state(cfg_path, work, latest))
+        elif check.diff or check.start != (nsteps, nsteps) \
                 or check.first != nsteps:
             raise SystemExit(f"phase {phase} resume: differs from {latest} "
                              f"in {check.diff[:5]}; starts at {check.start}, "
                              f"first step {check.first}, expected {nsteps}")
-        log(f"  resume: the state loaded from {latest} equals the saved one "
-            f"exactly (every parameter and buffer, Adam count / mu / nu, "
-            f"step, generator); it started at global step {check.first} "
-            f"and ran {t['steps']} more steps")
+        else:
+            log(f"  resume: the state loaded from {latest} equals the saved "
+                f"one exactly (every parameter and buffer, Adam count / mu "
+                f"/ nu, step, generator); it started at global step "
+                f"{check.first} and ran {t['steps']} more steps")
 
         steps = np.asarray([x["step_s"] for x in timings[1:]]) * 1e3
         waits = np.asarray([x["data_s"] for x in timings]) * 1e3
@@ -2590,15 +3011,16 @@ def run_train_entry(t=TRAIN_ENTRY, e=EVAL, phase="3e"):
             ex0 = tr.example_to_device(next(loader.epoch(0)), DEV)
         ex0["input_shape"] = ishape
         with torch.inference_mode():
-            books = model.backbone_mod.structures(
-                model.lidar_input(ex0).structure)
-        kinds = tuple("keys" if isinstance(books[f"t{i}"], co.KeyTable)
-                      else "rank" for i in range(1, 5))
-        nv = [books[f"s{i}"].num_voxels.tolist() for i in range(1, 5)]
-        del books
+            _, books = lidar_books(model, ex0)
+        tabs = stage_tables(books or {})
+        kinds = tuple("keys" if isinstance(tb, co.KeyTable) else "rank"
+                      for tb in tabs) or None
+        nv = [books[f"s{i}"].num_voxels.tolist()
+              for i in range(1, len(tabs) + 1)]
+        del books, tabs
         log(f"  stage tables {kinds}; voxels of the first batch by stage "
             f"{nv}")
-        if kinds != ("keys", "keys", "rank", "rank"):
+        if kinds != t.get("tables", ("keys", "keys", "rank", "rank")):
             raise SystemExit(f"phase {phase}: table kinds {kinds}")
         pipe = host_pipeline_ms(ds, cap)
         log("  train pipeline ms per frame (one thread): " + ", ".join(
@@ -2613,11 +3035,13 @@ def run_train_entry(t=TRAIN_ENTRY, e=EVAL, phase="3e"):
         shutil.rmtree(tmp, ignore_errors=True)
     result = dict(p50_ms=float(np.percentile(steps, 50)),
                   mean_ms=float(steps.mean()), steps_timed=len(steps),
+                  batch_size=B, pretrained_import=None if hrnet is None
+                  else hrnet["report"],
                   step_ms=[x["step_s"] * 1e3 for x in timings],
                   data_wait_ms=waits.tolist(),
                   data_wait_p50_ms=float(np.percentile(waits, 50)),
                   loader_mode=mode, peak_memory_gib=peak,
-                  launches_per_step=t["per_step"], tables=list(kinds),
+                  launches_per_step=t["per_step"], tables=list(kinds or ()),
                   voxels_first_batch=nv, host_pipeline_ms=pipe,
                   loader_alone=alone, last_losses=record["losses"][-1][1])
     return dict(result=result, launches=launches, model=model, ex0=ex0,
@@ -2690,8 +3114,10 @@ def profile_structures(name, r):
 
     model = r["model"]
     with torch.inference_mode():
-        st = model.lidar_input(r["ex0"])
-        model.backbone_mod.structures(st.structure)
+        st, _ = lidar_books(model, r["ex0"])
+        if st is None:
+            log(f"  {name}: no sparse structures (a dense BEV model)")
+            return None
         torch.cuda.synchronize()
         share, per_name = profile_call(
             lambda: model.backbone_mod.structures(st.structure),
@@ -2736,9 +3162,31 @@ def conv_kernel_sums(per_name):
                 dw_kernels=tot["dw"][1])
 
 
-def main():
+PHASES = ("3", "3b", "3c", "3d", "3e", "3f", "3g", "3h", "3i", "3j", "3k",
+          "3l", "3m", "4", "5")
+
+
+def parse_args(argv):
+    import argparse
+
+    p = argparse.ArgumentParser(description="Drive the port's main paths "
+                                "on one CUDA card (see the module docstring)")
+    p.add_argument("--phases", default=",".join(PHASES),
+                   help="comma-separated phases to run after 1 and 2 "
+                   f"(default: all of {','.join(PHASES)}); phases 4 and 5 "
+                   "cover the paths that ran")
+    args = p.parse_args(argv)
+    args.phases = [x.strip() for x in args.phases.split(",") if x.strip()]
+    bad = set(args.phases) - set(PHASES)
+    if bad:
+        p.error(f"unknown phases {sorted(bad)}")
+    return args
+
+
+def main(argv=None):
     import torch
 
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device "
                          "(torch.cuda.is_available() is False)\n")
@@ -2768,58 +3216,85 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
     paths, runs = main_paths(), {}
+    want = set(args.phases)
     for ph, name in (("3", "semkitti"), ("3b", "semnusc")):
-        phase(f"{ph}: main path {name}")
-        runs[name] = run_path(name, paths[name])
-    phase("3c: main path train")
-    runs["train"] = run_train()
-    small_train_check()
-    phase("3d: main path eval (published semkitti config)")
-    runs["eval"] = run_eval_path()
-    phase("3e: main path train entry (published semkitti config, B=2)")
-    runs["train_entry"] = run_train_entry()
-    phase("3f: main path eval-nu (published nuScenes config)")
-    runs["eval_nu"] = run_eval_path(EVAL_NU, "3f")
-    phase("3g: main path train-nu (published nuScenes config, B=3, "
-          "shm loader)")
-    runs["train_nu"] = run_train_entry(TRAIN_NU, EVAL_NU, "3g")
-    phase("3h: main path sdseg-eval (published SDSeg3D semkitti config, "
-          "then its _tta config with --tta)")
-    runs["sd_eval"] = run_eval_path(EVAL_SD, "3h")
-    runs["sd_eval_tta"] = run_eval_path(EVAL_SD_TTA, "3h")
-    phase("3i: main path sdseg-train (published SDSeg3D semkitti config, "
-          "B=4)")
-    runs["sd_train"] = run_train_entry(TRAIN_SD, EVAL_SD, "3i")
-    phase("3j: main path sdseg-nu-tta (published SDSeg3D nuScenes _tta "
-          "config with --tta)")
-    runs["sd_nu_tta"] = run_eval_path(EVAL_SD_NU, "3j")
-    phase("4: kernels against their plain versions")
-    report = kernel_checks(runs)
-    for row in report:
-        k = row["name"].split("[")[0]
-        by_path = {n: r["launches"][k] for n, r in runs.items()}
-        row["launches"] = sum(by_path.values())
-        row["launches_by_path"] = by_path
-    phase("5: profile of one scan per inference path, one train step, "
-          "and each inference path's structures+rulebooks build")
-    for name, r in runs.items():
-        log(f"  {name}:")
-        training = "step" in r
-        if training:
-            fn = lambda r=r: r["step"](r["state"], r["ex0"])  # noqa: E731
-        else:
-            def fn(r=r):
-                ret, bat = r["model"](r["ex0"])
-                r["model"].predict(ret, bat)
-        share, per_name = profile_call(
-            fn, "train step" if training else "scan")
-        log("  its conv and dW kernels (device time, launches):")
-        r["result"]["device_busy_share"] = share
-        r["result"]["conv_kernels"] = conv_kernel_sums(per_name)
-        if not training:
-            log(f"  {name}, structures+rulebooks of one scan:")
-            r["result"]["structures"] = profile_structures(name, r)
+        if ph in want:
+            phase(f"{ph}: main path {name}")
+            runs[name] = run_path(name, paths[name])
+    steps = [
+        ("3c", "main path train", lambda: {"train": run_train()}),
+        ("3d", "main path eval (published semkitti config)",
+         lambda: {"eval": run_eval_path()}),
+        ("3e", "main path train entry (published semkitti config, B=2, "
+         "the pretrained HRNet imported)",
+         lambda: {"train_entry": run_train_entry()}),
+        ("3f", "main path eval-nu (published nuScenes config)",
+         lambda: {"eval_nu": run_eval_path(EVAL_NU, "3f")}),
+        ("3g", "main path train-nu (published nuScenes config, B=3, shm "
+         "loader)", lambda: {"train_nu": run_train_entry(TRAIN_NU, EVAL_NU,
+                                                         "3g")}),
+        ("3h", "main path sdseg-eval (published SDSeg3D semkitti config, "
+         "then its _tta config with --tta)",
+         lambda: {"sd_eval": run_eval_path(EVAL_SD, "3h"),
+                  "sd_eval_tta": run_eval_path(EVAL_SD_TTA, "3h")}),
+        ("3i", "main path sdseg-train (published SDSeg3D semkitti config, "
+         "B=4)", lambda: {"sd_train": run_train_entry(TRAIN_SD, EVAL_SD,
+                                                      "3i")}),
+        ("3j", "main path sdseg-nu-tta (published SDSeg3D nuScenes _tta "
+         "config with --tta)",
+         lambda: {"sd_nu_tta": run_eval_path(EVAL_SD_NU, "3j")}),
+        ("3k", "main path cyl-eval (published Cylinder3D nuScenes config, "
+         "then its _v2p config)",
+         lambda: {"cyl_eval": run_eval_path(EVAL_CYL, "3k"),
+                  "v2p_eval": run_eval_path(EVAL_V2P, "3k")}),
+        ("3l", "main path cyl-train (published Cylinder3D nuScenes config, "
+         "B=2, then its _v2p config)",
+         lambda: {"cyl_train": run_train_entry(TRAIN_CYL, EVAL_CYL, "3l"),
+                  "v2p_train": run_train_entry(TRAIN_V2P, EVAL_V2P, "3l")}),
+        ("3m", "main path polar (published PolarNet nuScenes config: eval, "
+         "then trained at B=2)",
+         lambda: {"polar_eval": run_eval_path(EVAL_POLAR, "3m"),
+                  "polar_train": run_train_entry(TRAIN_POLAR, EVAL_POLAR,
+                                                 "3m")}),
+    ]
+    for ph, text, fn in steps:
+        if ph in want:
+            phase(f"{ph}: {text}")
+            runs.update(fn())
+        if ph == "3c" and ph in want:
+            small_train_check()
+    if "4" not in want:
+        report = []
+    else:
+        phase("4: kernels against their plain versions")
+        report = kernel_checks(runs)
+        for row in report:
+            k = row["name"].split("[")[0]
+            by_path = {n: r["launches"][k] for n, r in runs.items()}
+            row["launches"] = sum(by_path.values())
+            row["launches_by_path"] = by_path
+    if "5" in want:
+        phase("5: profile of one scan per inference path, one train step, "
+              "and each inference path's structures+rulebooks build")
+        for name, r in runs.items():
+            log(f"  {name}:")
+            training = "step" in r
+            if training:
+                fn = lambda r=r: r["step"](r["state"], r["ex0"])  # noqa: E731
+            else:
+                def fn(r=r):
+                    ret, bat = r["model"](r["ex0"])
+                    r["model"].predict(ret, bat)
+            share, per_name = profile_call(
+                fn, "train step" if training else "scan")
+            log("  its conv and dW kernels (device time, launches):")
+            r["result"]["device_busy_share"] = share
+            r["result"]["conv_kernels"] = conv_kernel_sums(per_name)
+            if not training:
+                log(f"  {name}, structures+rulebooks of one scan:")
+                r["result"]["structures"] = profile_structures(name, r)
     log(json.dumps({"main_path": {n: r["result"] for n, r in runs.items()},
+                    "phases": ["1", "2"] + args.phases,
                     "seconds": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": report}))

@@ -7,8 +7,8 @@ global-norm clip / Adam / decoupled weight decay under the schedules
 place on the model the state holds. ``train_segmentor`` runs the epochs:
 OneCycle over every step, a log line every ``log_interval`` steps, a
 checkpoint after each epoch, resume, validation and ``TrainerHook``
-events in the JAX package's order. TensorBoard logging and the profiler
-trace of the JAX loop are not ported yet.
+events in the JAX package's order, and optionally TensorBoard scalars
+and a torch.profiler trace of five steps.
 """
 
 import os
@@ -78,13 +78,20 @@ def create_train_state(model, optimizer, seed=0):
                       generator=torch.Generator(device=dev).manual_seed(seed))
 
 
+def _grid(input_shape):
+    """The example's input_shape: the host voxel grid, or None where the
+    model voxelizes the points itself."""
+    return None if input_shape is None else tuple(int(s) for s in
+                                                  input_shape)
+
+
 def forward_loss(state, batch, input_shape):
     """Forward in training mode and the losses, with the gradients of the
     last step cleared -> (total loss, dict of loss terms). The BN running
     statistics are updated here."""
     model = state.model
     ex = dict(batch)
-    ex["input_shape"] = tuple(int(s) for s in input_shape)
+    ex["input_shape"] = _grid(input_shape)
     model.train()
     model.zero_grad(set_to_none=True)
     ret, bat = model(ex, generator=state.generator)
@@ -132,7 +139,7 @@ def make_train_step(model, optimizer, input_shape):
 def make_eval_step(model, input_shape):
     def eval_step(state, batch):
         ex = dict(batch)
-        ex["input_shape"] = tuple(int(s) for s in input_shape)
+        ex["input_shape"] = _grid(input_shape)
         m = state.model.eval()
         ret, bat = m(ex)
         return m.predict(ret, bat)
@@ -206,10 +213,51 @@ def _fire(hooks, event, state, *args):
     return state, stop
 
 
+def _profile_window(total_steps):
+    """The global steps the profiler traces: 10-14 as in the JAX loop, or
+    the last five of a shorter run."""
+    first = max(min(10, total_steps - 5), 0)
+    return first, min(first + 4, total_steps - 1)
+
+
+class _StepProfiler:
+    """torch.profiler over the global steps ``_profile_window`` names; the
+    trace is written to ``profile_dir`` as a Chrome trace when the window
+    ends (or the loop does)."""
+
+    def __init__(self, profile_dir, total_steps, device):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.dir = profile_dir
+        self.first, self.last = _profile_window(total_steps)
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+        self.prof = profile(activities=acts)
+        self.running = False
+
+    def before(self, global_step):
+        if global_step == self.first:
+            os.makedirs(self.dir, exist_ok=True)
+            self.prof.start()
+            self.running = True
+
+    def after(self, global_step):
+        if self.running and global_step >= self.last:
+            self.stop()
+
+    def stop(self):
+        if self.running:
+            self.prof.stop()
+            self.running = False
+            self.prof.export_chrome_trace(os.path.join(
+                self.dir, f"trace_steps_{self.first}-{self.last}.json"))
+
+
 def train_segmentor(model, loader, input_shape, optimizer_cfg, lr_cfg,
                     total_epochs, work_dir, logger, grad_clip=35.0,
                     log_interval=5, resume_from=None, seed=0, val_fn=None,
-                    init_hook=None, hooks=(), timings=None):
+                    init_hook=None, tb_log_dir=None, profile_dir=None,
+                    hooks=(), timings=None):
     """The epoch loop (the JAX package's train_segmentor). The model
     already holds its parameters (build_detector), so the loop starts from
     ``create_train_state`` (the dropout generator seeded with ``seed``),
@@ -220,8 +268,16 @@ def train_segmentor(model, loader, input_shape, optimizer_cfg, lr_cfg,
     e)`` runs. ``timings``, a list, receives for each step the seconds the
     loop waited for its batch (taken from the loader and copied to the
     device) and the seconds of the step itself, measured to a device
-    synchronisation. Returns the state."""
+    synchronisation. ``tb_log_dir``: each log line's scalars (and the
+    learning rate) also go to TensorBoard event files there;
+    ``profile_dir``: a torch.profiler trace of global steps 10-14 (the
+    last five of a shorter run) is written there. Returns the state."""
     os.makedirs(work_dir, exist_ok=True)
+    tb = None
+    if tb_log_dir:
+        from ..utils.tb_logger import TensorboardLogger
+
+        tb = TensorboardLogger(tb_log_dir)
     steps_per_epoch = loader.steps_per_epoch()
     total_steps = steps_per_epoch * total_epochs
     optimizer, lr_fn = build_one_cycle_optimizer(
@@ -242,6 +298,8 @@ def train_segmentor(model, loader, input_shape, optimizer_cfg, lr_cfg,
     train_step = make_train_step(model, optimizer, input_shape)
     sync = (torch.cuda.synchronize if device.type == "cuda"
             else lambda *a: None)
+    prof = (None if not profile_dir
+            else _StepProfiler(profile_dir, total_steps, device))
 
     loop = dict(total_epochs=total_epochs, steps_per_epoch=steps_per_epoch,
                 work_dir=work_dir, lr_fn=lr_fn)
@@ -259,7 +317,12 @@ def train_segmentor(model, loader, input_shape, optimizer_cfg, lr_cfg,
             dev_batch = example_to_device(batch, device)
             t0 = time.perf_counter()
             t_data += t0 - t_ready
+            if prof is not None:
+                prof.before(global_step)
             state, ldict = train_step(state, dev_batch)
+            if prof is not None:
+                sync(device)
+                prof.after(global_step)
             if timings is not None:
                 sync(device)
                 timings.append(dict(data_s=t0 - t_ready,
@@ -284,6 +347,8 @@ def train_segmentor(model, loader, input_shape, optimizer_cfg, lr_cfg,
                     f"{steps_per_epoch}] lr: {lr:.5f}, eta: "
                     f"{eta / 60:.1f}min, data: {t_data:.2f}s, iter: "
                     f"{time.time() - t_iter:.2f}s, {msg}")
+                if tb is not None:
+                    tb.log_scalars({"lr": lr, **vals}, global_step)
                 buf, t_data, t_iter = {}, 0.0, time.time()
             t_ready = time.perf_counter()
         save_checkpoint(work_dir, state, epoch + 1)
@@ -293,6 +358,10 @@ def train_segmentor(model, loader, input_shape, optimizer_cfg, lr_cfg,
         state, stop_after = _fire(hooks, "after_epoch", state, epoch + 1)
         if stop or stop_after:
             break
+    if prof is not None:
+        prof.stop()
+    if tb is not None:
+        tb.close()
     for h in hooks:
         state = h.after_run(state) or state
     return state

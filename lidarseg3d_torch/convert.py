@@ -128,6 +128,68 @@ def flax_to_state_dict(model, variables,
     return out
 
 
+def _flax_leaf(module, attr, arr):
+    """The inverse of ``_convert_leaf``: a torch attribute of ``module``
+    -> (collection, Flax leaf name, array in Flax layout)."""
+    if attr in ("running_mean", "running_var"):
+        return "batch_stats", attr[len("running_"):], arr
+    if attr == "bias":
+        return "params", "bias", arr
+    if attr == "weight":
+        if isinstance(module, nn.Linear):
+            return "params", "kernel", arr.T
+        if isinstance(module, nn.Conv2d):
+            return "params", "kernel", arr.transpose(2, 3, 1, 0)
+        if isinstance(module, _SparseConvBase):
+            return "params", "kernel", arr
+        return "params", "scale", arr
+    raise KeyError(f"no Flax leaf for {type(module).__name__}.{attr}")
+
+
+def _restack(path):
+    """The inverse of ``_unstack`` for one torch path -> (Flax path, index
+    in the scan stack or None)."""
+    for parent, child in _SCANS:
+        for j in range(1, len(path) - 1):
+            if not path[j].isdigit():
+                continue
+            if parent is not None and path[j - 1] == parent:
+                return path[:j] + (child,) + path[j + 1:], int(path[j])
+            if parent is None and path[j - 1] == child:
+                return path[:j] + path[j + 1:], int(path[j])
+    return path, None
+
+
+def state_dict_to_flax(model):
+    """The model's parameters and BN statistics as the Flax variable tree
+    {"params": ..., "batch_stats": ...} of nested dicts of numpy arrays
+    that ``flax_to_state_dict`` takes back (the same rules, inverted; a
+    scan's ModuleList restacks on a leading axis; a model on the meta
+    device gives arrays of the shapes only). Covers the leaves of
+    Linear, Conv2d, sparse-conv and norm modules (DenseGeneral kernels of
+    more than two axes are not recovered)."""
+    trees = {"params": {}, "batch_stats": {}}
+    stacks = {}
+    for key, value in model.state_dict().items():
+        prefix, _, attr = key.rpartition(".")
+        arr = (np.empty(tuple(value.shape), np.float32) if value.is_meta
+               else value.detach().cpu().numpy())
+        coll, leaf, arr = _flax_leaf(model.get_submodule(prefix), attr, arr)
+        path, i = _restack(tuple(prefix.split(".")) + (leaf,))
+        if i is None:
+            stacks[(coll,) + path] = arr
+        else:
+            stacks.setdefault((coll,) + path, {})[i] = arr
+    for (coll, *path), arr in stacks.items():
+        if isinstance(arr, dict):
+            arr = np.stack([arr[i] for i in range(len(arr))])
+        node = trees[coll]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(arr, dtype=np.float32)
+    return trees
+
+
 def flax_params_to_named(model, params):
     """A Flax tree with the structure of the model's ``params`` (the
     parameters of a train state, or a gradient tree) -> {name: tensor}

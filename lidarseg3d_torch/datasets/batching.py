@@ -51,23 +51,28 @@ def _pad_stack(arrs, size, dtype, fill=0):
 
 def collate_segnet(frames, max_voxels, max_points, ignore_label=0,
                    on_overflow="warn"):
-    """frames: per-frame dicts with voxels [v,P,D], coordinates [v,3] zyx,
-    num_points_per_voxel [v], points [n,D], optionally images /
-    points_cuv / images_sem_labels / voxel_sem_labels / point_sem_labels.
-    Returns stacked numpy arrays (B leading; images_sem_labels
-    [B * ncam, H, W]), padded to the capacities."""
+    """frames: per-frame dicts with points [n,D] and, from a host
+    voxelization, voxels [v,P,D], coordinates [v,3] zyx and
+    num_points_per_voxel [v]; optionally images / points_cuv /
+    images_sem_labels / voxel_sem_labels / point_sem_labels. Returns
+    stacked numpy arrays (B leading; images_sem_labels [B * ncam, H, W]),
+    padded to the capacities. Frames without voxels (a model that
+    voxelizes on the device) give a batch of points only: no voxel keys
+    and no voxel_valid."""
     _check_overflow(frames, max_voxels, max_points, on_overflow)
     batch = {}
-    batch["voxels"] = _pad_stack([fr["voxels"] for fr in frames],
-                                 max_voxels, np.float32)
-    batch["coordinates"] = _pad_stack(
-        [np.asarray(fr["coordinates"], np.int32) for fr in frames],
-        max_voxels, np.int32, fill=-1)
-    batch["num_points"] = _pad_stack(
-        [np.asarray(fr["num_points_per_voxel"], np.int32) for fr in frames],
-        max_voxels, np.int32)
-    batch["num_voxels"] = np.asarray(
-        [min(fr["voxels"].shape[0], max_voxels) for fr in frames], np.int32)
+    if "voxels" in frames[0]:
+        batch["voxels"] = _pad_stack([fr["voxels"] for fr in frames],
+                                     max_voxels, np.float32)
+        batch["coordinates"] = _pad_stack(
+            [np.asarray(fr["coordinates"], np.int32) for fr in frames],
+            max_voxels, np.int32, fill=-1)
+        batch["num_points"] = _pad_stack(
+            [np.asarray(fr["num_points_per_voxel"], np.int32)
+             for fr in frames], max_voxels, np.int32)
+        batch["num_voxels"] = np.asarray(
+            [min(fr["voxels"].shape[0], max_voxels) for fr in frames],
+            np.int32)
     batch["points"] = _pad_stack(
         [np.asarray(fr["points"], np.float32) for fr in frames],
         max_points, np.float32)
@@ -93,17 +98,18 @@ def collate_segnet(frames, max_voxels, max_points, ignore_label=0,
             max_points, np.int32, fill=ignore_label)
     batch["point_valid"] = (
         np.arange(max_points)[None, :] < batch["num_points_total"][:, None])
-    batch["voxel_valid"] = (
-        np.arange(max_voxels)[None, :] < batch["num_voxels"][:, None])
+    if "num_voxels" in batch:
+        batch["voxel_valid"] = (
+            np.arange(max_voxels)[None, :] < batch["num_voxels"][:, None])
     batch["metadata"] = [fr.get("metadata") for fr in frames]
     return batch
 
 
 def pad_batch_rows(batch, multiple):
     """Pad the batch dim to a multiple of ``multiple`` with empty rows
-    (num_voxels = 0, all masks False). metadata is not padded: consumers
+    (no voxels or points: all masks False). metadata is not padded: consumers
     iterate over metadata to skip the empty rows."""
-    B = batch["voxels"].shape[0]
+    B = batch["points"].shape[0]
     pad = (-B) % multiple
     if pad == 0:
         return batch

@@ -111,7 +111,7 @@ def _shm_worker(ds_bytes, schema, shm_names, task_q, done_q, seed,
 
 class EpochSampler:
     """Deterministic per-epoch shuffling for one process. The JAX
-    package's multi-host sharding (ROADMAP A7) and grouped shuffle come
+    package's multi-host sharding (ROADMAP A6) and grouped shuffle come
     with their first caller."""
 
     def __init__(self, n, batch_size, shuffle=True, seed=0, drop_last=True):

@@ -25,7 +25,7 @@ class UNetSCN3D(nn.Module):
         cfg = dict(model_cfg or {})
         if cfg.get("RETURN_ENCODED_TENSOR", False):
             raise NotImplementedError(
-                "the detection encoded tensor is not ported")
+                "the detection encoded tensor is not ported (ROADMAP A9)")
         self.point_cloud_range = tuple(point_cloud_range)
         self.voxel_size = tuple(voxel_size)
         self.caps = cfg.get("DOWN_CAPACITY_RATIOS", (0.5, 0.25, 0.15))

@@ -41,7 +41,8 @@ class FCNMSeg3DHead(nn.Module):
         super().__init__()
         if use_sc_conv or input_transform != "resize_concat":
             raise NotImplementedError(
-                "the port has the resize-concat FCN head only")
+                "the port has the resize-concat FCN head only (use_sc_conv "
+                "and the other input transforms: ROADMAP A9)")
         self.compute_dtype = (None if compute_dtype is None
                               else getattr(torch, compute_dtype))
         self.ignore_index = ignore_index

@@ -34,7 +34,8 @@ class PointSegBatchlossHead(nn.Module):
 
     def forward(self, batch, generator=None):
         """batch: conv_point_features [B,V,C], conv_structure, conv_table,
-        conv_subm_rulebook, points [B,N,D], point_valid [B,N] -> dict(
+        conv_subm_rulebook (optional), points [B,N,D], point_valid [B,N]
+        -> dict(
         conv_logits [B,V,n_cls], out_logits [B,N,n_cls]). The head draws
         nothing at random; ``generator`` is accepted for the segmentors'
         common call."""
@@ -45,7 +46,7 @@ class PointSegBatchlossHead(nn.Module):
         point_feats = interp.grid_three_interpolate(
             batch["points"][..., :3], pvalid, struct, feats, self.voxel_size,
             self.point_cloud_range, table=batch["conv_table"],
-            subm_rulebook=batch["conv_subm_rulebook"])
+            subm_rulebook=batch.get("conv_subm_rulebook"))
         x = F.relu(self.MaskedBatchNorm_0(self.TorchLinear_0(point_feats),
                                           mask=pvalid))
         return {"conv_logits": conv_logits,

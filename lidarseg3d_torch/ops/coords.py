@@ -10,7 +10,8 @@ from dataclasses import dataclass
 
 import torch
 
-from .rank_lookup import extended_cells, lookup_single
+from .merge_lookup import merge_cells
+from .rank_lookup import extended_cells, lookup_single, rank_bits
 from .rank_pack import pack_rank_table
 
 INVALID_KEY = 2**31 - 1  # sorts to the end; never a valid key
@@ -121,3 +122,47 @@ def build_key_table(coords, num_voxels, spatial_shape, shift=12):
                     num=num_voxels.to(torch.int32),
                     spatial_shape=(Z, Y, X), shift=shift)
 
+
+
+# the JAX package pads a KeyTable's keys to a multiple of its merge
+# kernel's 1024-key window (lidarseg3d_tpu/ops/pallas_merge.py WIN);
+# lookup_key clips a miss's position to that padded length, as it does
+JAX_KEY_PAD = 1024
+
+
+def lookup_key(table: KeyTable, qcoords, extra_valid=None):
+    """Single-cell lookup on a KeyTable, the contract of lookup_rank:
+    qcoords [B, Q, 3] (z, y, x), extra_valid [B, Q] bool or None -> (row
+    [B, Q] int32, found [B, Q] bool), equal to the JAX package's
+    searchsorted lookup at every position: a found cell's row is its key
+    position; elsewhere the row is the count of keys below the cell,
+    clipped to the JAX package's padded key count. The answer comes from
+    the merge kernel (one launch on CUDA tensors): rank - act(cell) keys
+    lie below a cell. A cell is clamped into the x-extended grid first;
+    the grid's first and last cells are never keys, so a clamped query
+    counts the keys an unclamped one would."""
+    Z, Y, X = (int(s) for s in table.spatial_shape)
+    nce = Z * Y * (X + 2)
+    bounds = torch.tensor([Z, Y, X], dtype=qcoords.dtype,
+                          device=qcoords.device)
+    inb = torch.all((qcoords >= 0) & (qcoords < bounds), dim=-1)
+    if extra_valid is not None:
+        inb = inb & extra_valid
+    cell = extended_cells(qcoords.to(torch.int32), table.spatial_shape)
+    cell = cell.clamp(0, nce - 1).to(torch.int32).contiguous()
+    v = merge_cells(table.keys, table.coarse, table.shift, table.num,
+                    cell[None])[0]
+    rank, _, a0, _ = rank_bits(v)
+    V = table.keys.shape[1]
+    vp = -(-V // JAX_KEY_PAD) * JAX_KEY_PAD
+    return (rank - a0).clamp(max=vp - 1).to(torch.int32), inb & (a0 > 0)
+
+
+def lookup_coords(table, qcoords, spatial_shape, extra_valid=None):
+    """Coordinate-level lookup dispatching on the table kind (the JAX
+    package's lookup_coords without its hash and dense oracle kinds)."""
+    if isinstance(table, KeyTable):
+        return lookup_key(table, qcoords, extra_valid)
+    if isinstance(table, RankTable):
+        return lookup_rank(table, qcoords, extra_valid)
+    raise TypeError(f"unknown table {type(table).__name__}")

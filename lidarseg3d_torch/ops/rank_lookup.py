@@ -55,7 +55,10 @@ class RulebookSpec:
     x-taps (K = 3G). ``inverse`` False: a query is o * stride + k - pad
     (a subm rulebook is stride 1, padding (kz // 2, ky // 2, 1)); True: the
     inverse of a strided conv. ``grid`` (Z, Y, X) and ``v_in`` (capacity;
-    a miss is B * v_in) are those of the structure whose rows it names."""
+    a miss is B * v_in) are those of the structure whose rows it names.
+    ``kx`` 1 marks a kernel one tap wide in x: the kernels still build the
+    three taps of each group, with an x padding one larger than the
+    conv's, and ``sparse.build_rulebook`` keeps the middle one (K = G)."""
 
     inverse: bool
     kz: int
@@ -64,6 +67,7 @@ class RulebookSpec:
     pad: tuple
     grid: tuple
     v_in: int
+    kx: int = 3
 
     @property
     def groups(self):

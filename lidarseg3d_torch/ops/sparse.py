@@ -169,38 +169,53 @@ def lookup_rank3_cells(table, cell, inb):
             ((rank + ap - 1).to(i32), inb & (ap > 0)))
 
 
-def _require_rank3(table, ks):
-    if (not isinstance(table, (coord_ops.RankTable, coord_ops.KeyTable))
-            or ks[2] != 3):
+def _x_taps(table, ks, pad):
+    """The spec's x padding for a kernel of ``ks`` with padding ``pad``:
+    a kernel 3 wide in x keeps it; one 1 wide in x is built as the 3-wide
+    groups with the x padding one larger, whose middle tap queries the
+    1-wide kernel's cell (RulebookSpec.kx). Tables other than rank and key
+    tables, and other widths, raise."""
+    if not isinstance(table, (coord_ops.RankTable, coord_ops.KeyTable)):
         raise NotImplementedError(
-            "the port builds rulebooks on rank or key tables for kernels "
-            f"3 wide in x; got {type(table).__name__}, kernel {ks}")
+            f"the port builds rulebooks on rank or key tables; got "
+            f"{type(table).__name__}")
+    if ks[2] == 3:
+        return tuple(pad)
+    if ks[2] == 1:
+        return (pad[0], pad[1], pad[2] + 1)
+    raise NotImplementedError(f"kernel {ks}: x width {ks[2]} (1 or 3)")
 
 
 def build_rulebook(table, s: SparseStructure, spec: RulebookSpec):
     """The [K, B, V] flat rulebook ``spec`` for the rows of ``s``: on a
     RankTable one fused kernel (rank_lookup.rulebook_rank); on a KeyTable
-    the query cells, the merge lookup and the decode."""
+    the query cells, the merge lookup and the decode. A kernel one tap
+    wide in x (spec.kx == 1) keeps each group's middle tap."""
     if isinstance(table, coord_ops.KeyTable):
         cells = rulebook_cells(s.coords, s.num_voxels, spec)
         values = merge_cells(table.keys, table.coarse, table.shift,
                              table.num, cells)
-        return rulebook_decode(values, s.coords, s.num_voxels, spec)
-    return rulebook_rank(table.packed, s.coords, s.num_voxels, spec)
+        rb = rulebook_decode(values, s.coords, s.num_voxels, spec)
+    else:
+        rb = rulebook_rank(table.packed, s.coords, s.num_voxels, spec)
+    if spec.kx == 1:
+        G, (_, B, V) = spec.groups, rb.shape
+        rb = rb.view(G, 3, B, V)[:, 1].contiguous()
+    return rb
 
 
 def subm_spec(table, s: SparseStructure, kernel_size=3):
     """RulebookSpec of a submanifold conv on ``s``: stride 1, the kernel
-    centred (padding kz // 2, ky // 2 and 1 in x)."""
-    kz, ky, _ = ks = _triple(kernel_size)
-    _require_rank3(table, ks)
-    return RulebookSpec(False, kz, ky, (1, 1, 1), (kz // 2, ky // 2, 1),
-                        table.spatial_shape, s.capacity)
+    centred (padding kz // 2, ky // 2 and kx // 2)."""
+    kz, ky, kx = ks = _triple(kernel_size)
+    pad = _x_taps(table, ks, (kz // 2, ky // 2, kx // 2))
+    return RulebookSpec(False, kz, ky, (1, 1, 1), pad, table.spatial_shape,
+                        s.capacity, kx)
 
 
 def build_subm_rulebook(s: SparseStructure, kernel_size=3, table=None):
     """[K, B, V] flat rulebook of a submanifold conv on ``s``; each
-    (dz, dy) group of three x-taps costs one table lookup."""
+    (dz, dy) group of x-taps costs one table lookup."""
     if table is None:
         table = dense_table(s)
     return build_rulebook(table, s, subm_spec(table, s, kernel_size))
@@ -290,11 +305,11 @@ def strided_spec(table, s_in: SparseStructure, kernel_size=3, stride=2,
     o*stride + k - pad. The x-taps query consecutive cells, so one lookup
     at the middle cell serves all three."""
     ks, sz, pad = _triple(kernel_size), _triple(stride), _triple(padding)
-    _require_rank3(table, ks)
+    pad = _x_taps(table, ks, pad)
     if pad[2] > 2:
         raise NotImplementedError(f"x padding {pad[2]} > 2")
     return RulebookSpec(False, ks[0], ks[1], sz, pad, table.spatial_shape,
-                        s_in.capacity)
+                        s_in.capacity, ks[2])
 
 
 def build_strided_rulebook(s_in: SparseStructure, out_struct: SparseStructure,
@@ -314,11 +329,11 @@ def inverse_spec(table, s_low: SparseStructure, kernel_size=3, stride=2,
     numerators of a group map to consecutive source cells, so one lookup
     still serves the group."""
     ks, sz, pad = _triple(kernel_size), _triple(stride), _triple(padding)
-    _require_rank3(table, ks)
+    pad = _x_taps(table, ks, pad)
     if sz[2] not in (1, 2):
         raise NotImplementedError(f"x stride {sz[2]}")
     return RulebookSpec(True, ks[0], ks[1], sz, pad, table.spatial_shape,
-                        s_low.capacity)
+                        s_low.capacity, ks[2])
 
 
 def build_inverse_rulebook(s_low: SparseStructure,

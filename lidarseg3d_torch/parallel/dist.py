@@ -14,7 +14,7 @@ def _single_process(what):
             and tdist.get_world_size() > 1:
         raise NotImplementedError(
             f"{what}: multi-process runs are not ported to lidarseg3d_torch "
-            f"yet (world size {tdist.get_world_size()})")
+            f"yet (world size {tdist.get_world_size()}; ROADMAP A6)")
 
 
 def is_main_process():

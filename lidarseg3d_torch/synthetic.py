@@ -16,8 +16,9 @@ dataset on disk in SemanticKITTI's and nuScenes-lidarseg's layouts, and
 ``write_eval_config`` a config whose splits read it, for the evaluation
 and training entry points; ``write_mini_segnet_config`` cuts a published
 SegNet config (SDSeg3D, the MSeg3D lidar-only baselines) to a mini model
-over such a tree. ``segnet_model_cfg`` is SDSeg3D's model at its
-published widths.
+over such a tree, ``write_mini_polar_config`` a published SegPolarNet
+config (Cylinder3D, its _v2p variant, PolarNet) over a nuScenes tree.
+``segnet_model_cfg`` is SDSeg3D's model at its published widths.
 """
 
 import json
@@ -556,6 +557,51 @@ def write_mini_segnet_config(path, config, data_root, work_dir="unused",
         text = f.read() + _MINI_SEGNET.format(root=data_root, work=work_dir)
     if cam_chans is not None:
         text += _MINI_CAMS.format(n=len(cam_chans), chans=list(cam_chans))
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+# a published SegPolarNet config (Cylinder3D, its _v2p variant, PolarNet)
+# cut to a mini model (its pipelines, dataset, optimizer and schedule stay
+# the published ones): a 32x32x8 cylindrical grid within 12.8 m, a 32-wide
+# (Cylinder3D) or 64-wide (PolarNet) PP model, Cylinder3D at init_size 4
+# with 1,200 voxels, 16-wide batch-loss head layers, 2,048 points, B=2
+_MINI_POLAR = """
+cylindrical_range = [0, -np.pi, -5.0, 12.8, np.pi, 3.0]
+cylindrical_grid_size = [32, 32, 8]
+model["reader"].update(grid_size=cylindrical_grid_size,
+                       point_cloud_range=cylindrical_range, fea_compre=8)
+if model["reader"]["type"].startswith("Cylinder3D"):
+    model["reader"].update(num_output_features=32, max_voxels=1200)
+    model["backbone"].update(output_shape=cylindrical_grid_size,
+                             num_input_features=8, n_height=8, init_size=4)
+else:
+    model["reader"].update(num_output_features=64)
+    model["backbone"].update(n_height=8)
+if model["point_head"]["type"] == "PointSegBatchlossHead":
+    model["point_head"]["model_cfg"].update(CONV_CLS_FC=[16],
+                                            CONV_ALIGN_DIM=16,
+                                            OUT_CLS_FC=[16])
+capacity = dict(max_points=2048)
+train_preprocessor["npoints"] = 2000
+for _split in ("train", "val", "test"):
+    data[_split]["root_path"] = {root!r}
+    data[_split]["info_path"] = ({root!r} + "/"
+                                 + data[_split]["info_path"].rsplit("/")[-1])
+data.update(samples_per_gpu=2, workers_per_gpu=1)
+log_config = dict(interval=1)
+work_dir = {work!r}
+"""
+
+
+def write_mini_polar_config(path, config, data_root, work_dir="unused"):
+    """Write to ``path`` the published SegPolarNet config file ``config``
+    (Cylinder3D, Cylinder3D _v2p or PolarNet on nuScenes) cut to a mini
+    model (``_MINI_POLAR``) whose splits read the nuScenes tree with its
+    infos at ``data_root``. Returns ``path``."""
+    with open(config) as f:
+        text = f.read() + _MINI_POLAR.format(root=data_root, work=work_dir)
     with open(path, "w") as f:
         f.write(text)
     return path

@@ -56,7 +56,11 @@ def _logger():
 
 
 def input_shape_of(cfg):
-    """(Z, Y, X) of the config's voxel grid, Z with one extra slab."""
+    """(Z, Y, X) of the config's voxel grid, Z with one extra slab; None
+    for a config without a host voxel generator (its model voxelizes the
+    points itself: SegPolarNet's dynamic VFEs)."""
+    if "voxel_generator" not in cfg:
+        return None
     rng = np.asarray(cfg.voxel_generator["range"], np.float32)
     vs = np.asarray(cfg.voxel_generator["voxel_size"], np.float32)
     grid = np.round((rng[3:] - rng[:3]) / vs).astype(int)

@@ -19,11 +19,15 @@ and logs its mIoU. ``--autoscale-lr`` scales ``lr_max`` by the devices
 used / 8 (one here). The device is ``cuda`` unless ``--device cpu`` is
 given, and the tool raises when there is no card.
 
-A ``pretrained`` image backbone that does not exist is skipped with a
-warning, as the JAX package does; one that exists raises, because the
-HRNet checkpoint import is not ported yet (ROADMAP A6). ``--tb_log_dir``,
-``--profile_dir`` (ROADMAP A5) and the ``--dist_*`` flags (multi-process
-training, ROADMAP A7) raise.
+The image backbone's ``pretrained`` HRNet (a flax msgpack, as
+``tools/convert_hrnet_checkpoint.py`` writes it from an mmcv state_dict)
+is grafted in after the train state is made and before a resume, as the
+JAX tool does (``apis.pretrain.load_hrnet_pretrained``; the log reports
+the tensors loaded, skipped and unexpected); a file that does not exist
+is skipped with a warning. ``--tb_log_dir`` writes the logged scalars to
+TensorBoard event files, ``--profile_dir`` a torch.profiler trace of five
+steps (see ``apis.train.train_segmentor``). The ``--dist_*`` flags
+(multi-process training, ROADMAP A6) raise.
 """
 
 import argparse
@@ -58,19 +62,11 @@ def parse_args(argv=None):
 
 
 def _refuse_unported(args):
-    if args.tb_log_dir:
-        raise NotImplementedError("--tb_log_dir: TensorBoard logging is not "
-                                  "ported to lidarseg3d_torch yet (ROADMAP "
-                                  "A5)")
-    if args.profile_dir:
-        raise NotImplementedError("--profile_dir: the profiler trace is not "
-                                  "ported to lidarseg3d_torch yet (ROADMAP "
-                                  "A5)")
     if (args.dist_coordinator is not None or args.dist_num_processes
             is not None or args.dist_process_id is not None):
         raise NotImplementedError("--dist_*: multi-process training is not "
                                   "ported to lidarseg3d_torch yet (ROADMAP "
-                                  "A7)")
+                                  "A6)")
 
 
 def _logger(log_file):
@@ -131,12 +127,13 @@ def main(argv=None, hooks=(), timings=None):
         seed = args.seed or 0
         img_bb = cfg.model.get("img_backbone") or {}
         pretrained = img_bb.get("pretrained") if img_bb else None
-        if pretrained and os.path.isfile(pretrained):
-            raise NotImplementedError(
-                f"pretrained {pretrained}: the HRNet checkpoint import is "
-                "not ported to lidarseg3d_torch yet (ROADMAP A6)")
+        init_hook = None
         if pretrained:
-            logger.warning(f"pretrained HRNet not found: {pretrained}")
+            from ..apis.pretrain import load_hrnet_pretrained
+
+            def init_hook(state):
+                load_hrnet_pretrained(state.model, pretrained, logger=logger)
+                return state
 
         model_cfg = copy.deepcopy(cfg.model.to_dict())
         for key in ("train_cfg", "test_cfg"):
@@ -190,7 +187,8 @@ def main(argv=None, hooks=(), timings=None):
                 work_dir=work_dir, logger=logger, grad_clip=grad_clip,
                 log_interval=cfg.get("log_config", {}).get("interval", 5),
                 resume_from=args.resume_from, seed=seed, val_fn=val_fn,
-                hooks=hooks, timings=timings)
+                init_hook=init_hook, tb_log_dir=args.tb_log_dir,
+                profile_dir=args.profile_dir, hooks=hooks, timings=timings)
         finally:
             loader.shutdown()
             if val_loader is not None:

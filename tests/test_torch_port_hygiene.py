@@ -37,6 +37,12 @@ NUSC_MODULES = ("datasets/nuscenes/metadata.py",
 SEGNET_MODULES = ("models/readers/voxel_encoders.py",
                   "models/point_heads/batchloss_head.py",
                   "models/segmentors/seg_net.py", "convert.py")
+POLAR_MODULES = ("apis/pretrain.py", "tools/convert_hrnet_checkpoint.py",
+                 "ops/dynamic_voxel.py", "models/readers/dynamic_vfe.py",
+                 "models/backbones/cylinder3d.py",
+                 "models/backbones/polarnet_unet.py",
+                 "models/point_heads/polarnet_head.py",
+                 "models/segmentors/seg_polarnet.py", "utils/tb_logger.py")
 SCRIPTS = ("chip_smoke.py", "profile_build.py", "profile_convs.py",
            "profile_merge.py")
 
@@ -61,7 +67,7 @@ def test_port_imports_no_jax():
               for p in files[:-len(SCRIPTS)]}
     wanted = (set(TRAINING_MODULES) | set(EVAL_MODULES)
               | set(TRAIN_ENTRY_MODULES) | set(NUSC_MODULES)
-              | set(SEGNET_MODULES))
+              | set(SEGNET_MODULES) | set(POLAR_MODULES))
     assert wanted <= listed, wanted - listed
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imports(p) if m.split(".")[0] in FORBIDDEN]

@@ -336,12 +336,14 @@ def test_cli_trains_checkpoints_and_validates(setup, tmp_path):
     assert "pretrained" not in out.stdout  # the mini config names none
 
 
-@pytest.mark.parametrize("flag", [["--tb_log_dir", "tb"],
-                                  ["--profile_dir", "prof"],
-                                  ["--dist_coordinator", "localhost:1"],
-                                  ["--dist_num_processes", "2"]])
+@pytest.mark.parametrize("flag", [["--dist_coordinator", "localhost:1"],
+                                  ["--dist_num_processes", "2"],
+                                  ["--dist_process_id", "1"],
+                                  ["--dist_coordinator", "localhost:1",
+                                   "--dist_num_processes", "2",
+                                   "--dist_process_id", "0"]])
 def test_cli_refuses_unported_flags(setup, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP A[57]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         tool.main([setup["cfg_path"], "--device", "cpu"] + flag)
 
 
@@ -353,7 +355,9 @@ def test_existing_pretrained_raises_and_missing_one_warns(setup, tmp_path,
     for path, name in ((weights, "have.py"), (tmp_path / "none", "miss.py")):
         (tmp_path / name).write_text(
             base + f"model['img_backbone']['pretrained'] = {str(path)!r}\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    # an existing file is imported (apis/pretrain.py); this empty one is
+    # no msgpack, so reading it raises, as the JAX package's reader does
+    with pytest.raises(ValueError, match="Unpack failed"):
         tool.main([str(tmp_path / "have.py"), "--device", "cpu",
                    "--work_dir", str(tmp_path / "w1")])
     tool.main([str(tmp_path / "miss.py"), "--device", "cpu", "--work_dir",
