@@ -135,6 +135,33 @@ exit):
      the circular BEV UNet on cuDNN: no kernel of the port, 0 launches)
      evaluated on four frames and trained at B=2, one epoch of 2 steps and
      a resume;
+  3n. ddp: multi-process training and evaluation (parallel/), in spawned
+     processes: (a) 3c's step at full width on two ranks sharing the card
+     over gloo, one row of a labelled B=2 batch each (dropout on: every
+     rank draws the global batch's mask), against one process on both
+     rows: each rank's launches in the step are 3c's per step, the loss
+     terms within 1e-4, the gradients (and the gradient norm) within
+     TOL_DDP_GRAD, the parameters after the step within Adam's first
+     update where the gradients settle its sign, the BN statistics within
+     TOL_DDP_STATS, the
+     ranks' states bit-identical after the first step and after three
+     timed ones (each between two barriers: a step of two ranks sharing
+     one card, not a scaling figure); (b) one NCCL rank started from
+     torchrun's variables, deterministic algorithms on: its step on the
+     B=2 batch bit for bit as the same step without a process group,
+     where two runs without one agree bit for bit (elsewhere within four
+     times their spread: the gathers' backward adds atomically); (c)
+     tools.train at the published SemanticKITTI config on two ranks
+     (--dist_* flags, --dist_share_card, B=2 a rank, 3e's tree and
+     imported HRNet-w18, threads for the loader): one epoch of 2 steps
+     writing epoch_1 once, then a resume for a second epoch; each step's
+     launches are 3e's, every parameter outside the frozen stages moved,
+     the resumed state equals epoch_1 on both ranks, and the final states
+     are bit-identical; (d) tools.test on two ranks over three frames of
+     3d's tree (BN calibrated): each rank's launches are two frames' of
+     3d's, the ranks split the frames (rank 1's padding repeat of frame 0
+     evaluated, not counted), the labels equal one rank's on every frame
+     and the mIoU equals one rank's;
   4. hold each kernel against its plain version on the card at each main
      path's shapes, from a real scan of that path: the rulebook conv in
      fp32 and bf16 (stage-1 subm, stage-1->2 strided, stage-4 subm; and as
@@ -247,6 +274,29 @@ TRAIN = dict(cfg=dict(ratio=2), B=2, V=131072, N=122880, img_hw=(384, 1280),
                        "rulebook_decode": 0, "lookup_single": 1,
                        "rank_lookup": 0, "rank_pack": 4,
                        "merge_lookup": 0})
+# phase 3n: multi-process training and evaluation (parallel/). (a) 3c's
+# step on two ranks sharing the card over gloo, a row each, against one
+# process on both rows (the two differ by the order of their sums and by
+# cuDNN's algorithms for one image against two): the loss terms to
+# TOL_TRAIN_LOSS, the gradients to TOL_DDP_GRAD, the BN statistics to
+# TOL_DDP_STATS of their max, then timed steps;
+# (c) tools.train at the published config on two ranks, an epoch of
+# ``steps`` and a resume; (d) tools.test on two ranks over ``eval_frames``
+# (odd) frames of 3d's tree
+DDP = dict(seed=100, timed_steps=3, steps=2, eval_frames=3, timeout_s=900)
+TOL_DDP_STATS = 1e-4
+# (a)'s gradients (relative L2, max |err| / max). The ranks' step is one
+# process's exactly in float64 (tests/test_torch_port_ddp_train.py: 1e-9,
+# read 1e-13); in fp32 the two programs sum in other orders and run cuDNN
+# at one image against two, and the image branch and the point head's
+# eps=1e-6 camera BN carry that into the gradients: read 5.88e-3 (point
+# head TorchLinear_1) and 3.31e-2 (HRNet's stem BN bias) in calls 3 and 4
+# of PR 12, the same digits in both, where one process against itself
+# reads 1.4e-6 and 1.2e-5 and each image alone against both at once, in
+# evaluation mode, 1.7e-6 of the features' max; the image branch's
+# smallest gradients (HRNet's deep stages, ~1e-4) read up to 5.1e-2 of
+# their max entrywise (call 5)
+TOL_DDP_GRAD = {"lidar+head": (1e-2, 2e-2), "image": (5e-2, 1e-1)}
 # small train step, card against CPU: loss terms relative; each gradient
 # tensor against the CPU's as (relative L2 norm, max |err| / max |CPU|),
 # plus an absolute floor for tensors whose gradient is analytically zero.
@@ -3049,6 +3099,625 @@ def run_train_entry(t=TRAIN_ENTRY, e=EVAL, phase="3e"):
                 path=dict(V=cap["max_voxels"], N=cap["max_points"]))
 
 
+def ddp_rows(batch, world):
+    """Rank r's rows of a collated batch (B = world * b rows): every key's
+    slice on the batch axis; images_sem_labels has ncam rows a frame."""
+    B = len(batch["num_voxels"])
+    b = B // world
+    out = []
+    for r in range(world):
+        part = {}
+        for k, v in batch.items():
+            per = v.shape[0] // B if k == "images_sem_labels" else 1
+            part[k] = v[r * b * per:(r + 1) * b * per]
+        out.append(part)
+    return out
+
+
+def ddp_record(model, ldict):
+    """A train step's loss terms, gradients and state, on the host."""
+    return dict(losses={k: float(v) for k, v in ldict.items()},
+                grads={k: p.grad.detach().to("cpu", copy=True) for k, p in
+                       model.named_parameters() if p.grad is not None},
+                state={k: v.detach().to("cpu", copy=True) for k, v in
+                       model.state_dict().items()})
+
+
+def ddp_digest(model):
+    """sha1 of every state_dict tensor's bytes: equal digests are
+    bit-identical tensors."""
+    import hashlib
+
+    import torch
+
+    return {k: hashlib.sha1(v.detach().cpu().contiguous().reshape(-1).view(
+        torch.uint8).numpy().tobytes()).hexdigest()
+            for k, v in model.state_dict().items()}
+
+
+def ddp_step_model(job):
+    """The 3c model from the phase's first state on the job's device, its
+    train state and step (phase 3n)."""
+    import torch
+    from lidarseg3d_torch import synthetic as syn
+    from lidarseg3d_torch.models import build_detector
+
+    t = job["train"]
+    model = build_detector(syn.mseg3d_model_cfg(**t["cfg"]),
+                           device=job["device"], seed=0)
+    model.load_state_dict(torch.load(job["state"], map_location=job["device"],
+                                     weights_only=True))
+    return (model, *train_setup(model, t["optimizer"], t["lr"],
+                                t["total_steps"], t["grad_clip"],
+                                syn.grid_shape())[1:])
+
+
+def ddp_rank_step(rank, job):
+    """Phase 3n (a) on one rank: the first step of the 3c model on this
+    rank's row (counted launches, the record), then timed steps, each
+    between two barriers; the state's digest after each."""
+    import numpy as np
+    import torch
+    from lidarseg3d_torch.apis import train as tr
+    from lidarseg3d_torch.parallel import dist
+
+    dev = job["device"]
+    ex = tr.example_to_device(dict(np.load(job["rows"][rank])), dev)
+    model, state, step = ddp_step_model(job)
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    import torch.distributed as tdist
+
+    real, calls = tdist.all_reduce, []  # count the step's all-reduces
+
+    def counted(*a, **k):
+        calls.append(a[0].numel())
+        return real(*a, **k)
+
+    tdist.all_reduce = counted
+    try:
+        state, ldict = step(state, ex)
+    finally:
+        tdist.all_reduce = real
+    sync()
+    out = dict(launches={k: w.launches for k, w in ws.items()},
+               all_reduces=len(calls), all_reduce_numel=sum(calls),
+               record=ddp_record(model, ldict) if rank == 0 else None,
+               first=ddp_digest(model))
+    times = []
+    for _ in range(job["timed_steps"]):
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        check_losses(step(state, ex)[1], f"rank {rank} step")
+        sync()
+        dist.barrier()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out.update(times=times, last=ddp_digest(model), peak_gib=(
+        torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else 0.0))
+    return out
+
+
+def ddp_rank_train(rank, job):
+    """Phase 3n (c) on one rank: tools.train on the published config
+    (--dist_* flags, card 0 shared), one epoch of 2 steps, then a resume
+    for a second; each step's launches held to TRAIN_ENTRY's, every
+    parameter outside the frozen stages moved, the resumed state equal to
+    the checkpoint. -> files, launches, losses, digests."""
+    from lidarseg3d_torch.apis.train import TrainerHook
+    from lidarseg3d_torch.tools import train as tool
+
+    per_step = job["train_entry_per_step"]
+    work = os.path.join(job["train_dir"], "work")
+    base = [job["train_cfg"], "--work_dir", work, "--max_steps_per_epoch",
+            str(job["train_steps"]), "--device", job["device"],
+            "--dist_share_card",
+            "--dist_num_processes", "2", "--dist_process_id", str(rank)]
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    record, grab = {}, {}
+
+    class Keep(TrainerHook):
+        def before_run(self, state, loop):
+            if "diff" not in grab and state.step > 0:
+                grab["diff"] = state_equals_checkpoint(
+                    state, os.path.join(work, "epoch_1"))
+                grab["start"] = int(state.step)
+
+        def after_run(self, state):
+            grab["digest"] = ddp_digest(state.model)
+
+    cwd = os.getcwd()
+    os.chdir(job["train_dir"])
+    try:
+        tool.main(base + ["--total_epochs", "1", "--dist_coordinator",
+                          f"file://{job['tmp']}/rv_train1"],
+                  hooks=[train_entry_hook(ws, per_step, record, "3n"),
+                         Keep()])
+        files = sorted(os.listdir(work))
+        first = {k: w.launches for k, w in ws.items()}
+        tool.main(base + ["--total_epochs", "2", "--resume_from",
+                          "--dist_coordinator",
+                          f"file://{job['tmp']}/rv_train2"],
+                  hooks=[Keep(), train_entry_hook(ws, per_step, record,
+                                                  "3n")])
+    finally:
+        os.chdir(cwd)
+    return dict(files=files, launches_first=first,
+                launches={k: w.launches for k, w in ws.items()},
+                losses=record["losses"], moved=record["moved"],
+                resume_diff=grab["diff"], resume_start=grab["start"],
+                digest=grab["digest"])
+
+
+def ddp_rank_eval(rank, job):
+    """Phase 3n (d) on one rank: tools.test over the odd tree (--dist_*
+    flags, card 0 shared). -> its detections, result and launches."""
+    from lidarseg3d_torch.tools import test as tool
+
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    cwd = os.getcwd()
+    os.chdir(job["eval_dir"])
+    try:
+        out = tool.main(job["eval_args"] + [
+            "--dist_share_card", "--dist_coordinator",
+            f"file://{job['tmp']}/rv_eval", "--dist_num_processes", "2",
+            "--dist_process_id", str(rank)])
+    finally:
+        os.chdir(cwd)
+    return dict(detections=out["detections"], results=out["results"],
+                launches={k: w.launches for k, w in ws.items()})
+
+
+def ddp_rank(rank, job):
+    """One of phase 3n's two ranks (a spawned process; both on card 0,
+    joined over gloo): (a), then (c), then (d). Its result, or its
+    traceback, goes to a file the phase reads."""
+    import traceback
+
+    import torch
+
+    out = os.path.join(job["tmp"], f"rank{rank}.pt")
+    try:
+        from lidarseg3d_torch.parallel import dist
+
+        # two ranks on the host's cores: intra-op threads that spin in one
+        # rank's host ops starve the other's
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+        dist.init_distributed(f"file://{job['tmp']}/rv_step", 2, rank,
+                              device=job["device"], share_card=True)
+        try:
+            res = {"step": ddp_rank_step(rank, job)}
+        finally:
+            dist.shutdown()
+        res["train"] = ddp_rank_train(rank, job)
+        res["eval"] = ddp_rank_eval(rank, job)
+        torch.save({"result": res}, out)
+    except BaseException:
+        torch.save({"error": traceback.format_exc()}, out)
+        raise
+
+
+def ddp_nccl_one_rank(job):
+    """Phase 3n (b) (a spawned process): torchrun's variables for one rank,
+    deterministic algorithms; the 3c step on the whole B=2 batch twice
+    without a process group, then once in the one-rank NCCL group
+    init_distributed starts from the variables. -> per tensor, whether
+    the group's step equals the first exactly, and the spreads."""
+    import traceback
+
+    out = os.path.join(job["tmp"], "nccl.pt")
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(job["port"]),
+                      CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    try:
+        from lidarseg3d_torch.apis import train as tr
+        from lidarseg3d_torch.parallel import dist
+
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        ex = tr.example_to_device(dict(np.load(job["batch"])), job["device"])
+        backend = "nccl" if job["device"] == "cuda" else "gloo"
+        recs = []
+        for i in range(3):
+            if i == 2:
+                got = dist.init_distributed(device=job["device"])
+                if got != (0, 1) or tdist.get_backend() != backend:
+                    raise SystemExit(f"torchrun variables started {got} on "
+                                     f"{tdist.get_backend()}")
+            model, state, step = ddp_step_model(job)
+            state, ldict = step(state, ex)
+            recs.append(ddp_record(model, ldict))
+            del model, state, step
+        dist.shutdown()
+        a1, a2, b = recs
+        rows = {}
+        for part in ("grads", "state"):
+            for k, v in a1[part].items():
+                rows[f"{part}:{k}"] = (
+                    bool(torch.equal(b[part][k], v)),
+                    float((b[part][k].double() - v.double()).abs().max()),
+                    float((a2[part][k].double() - v.double()).abs().max()))
+        losses = {k: (v, a2["losses"][k], b["losses"][k])
+                  for k, v in a1["losses"].items()}
+        torch.save({"result": dict(rows=rows, losses=losses)}, out)
+    except BaseException:
+        torch.save({"error": traceback.format_exc()}, out)
+        raise
+
+
+def ddp_spawn(target, args_list, tmp, names, timeout):
+    """Start one spawned process per argument tuple, wait for all, and read
+    each one's result file (a failure's traceback ends the phase)."""
+    import multiprocessing as mp
+
+    import torch
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=a) for a in args_list]
+    for p in procs:
+        p.start()
+    t_end = time.perf_counter() + timeout
+    for p in procs:
+        p.join(max(t_end - time.perf_counter(), 1))
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+            p.join()
+    results = []
+    for name, p in zip(names, procs):
+        path = os.path.join(tmp, name)
+        got = (torch.load(path, weights_only=False) if os.path.exists(path)
+               else {"error": f"no result, exit code {p.exitcode}"})
+        if "error" in got:
+            raise SystemExit(f"phase 3n: {name} failed:\n{got['error']}")
+        results.append(got["result"])
+    return results
+
+
+def same_results(a, b):
+    """Two evaluation result dicts equal, NaN (a class absent) as NaN."""
+    import math
+
+    return a.keys() == b.keys() and all(
+        a[k] == b[k] or (math.isnan(a[k]) and math.isnan(b[k])) for k in a)
+
+
+def ddp_compare_step(one, got, errors):
+    """Phase 3n (a)'s limits: rank 0's first step against one process's
+    on both rows; what breaks one goes to ``errors``. -> the worst
+    relative errors, for the log."""
+    import torch
+
+    lr = TRAIN["lr"]["lr_max"] / TRAIN["lr"]["div_factor"]
+    for k, v in one["losses"].items():
+        # the gradient norm differs as the gradients do: by at most their
+        # difference's norm, held below in relative L2
+        lim = TOL_DDP_GRAD["lidar+head"][0] if k == "grad_norm" \
+            else TOL_TRAIN_LOSS
+        g = got["losses"][k]
+        if abs(g - v) > lim * abs(v):
+            errors.append(f"phase 3n: loss term {k} {g} on two ranks, "
+                             f"{v} in one process")
+    worst = {}
+    for k, want in one["grads"].items():
+        group = "image" if k.startswith("img_") else "lidar+head"
+        l2_lim, max_lim = TOL_DDP_GRAD[group]
+        g = got["grads"][k].double()
+        w = want.double()
+        scale = float(w.abs().max())
+        atol = 1e-8 * one["losses"]["grad_norm"]
+        err = float((g - w).abs().max())
+        l2 = float((g - w).norm() / w.norm()) if scale > 10 * atol else 0.0
+        if err > max_lim * scale + atol or l2 > l2_lim:
+            errors.append(f"phase 3n: gradient of {k}: {err:.3e} of max "
+                             f"{scale:.3e}, relative L2 {l2:.3e} (limits "
+                             f"{max_lim}, {l2_lim})")
+        d = (got["state"][k].double() - one["state"][k].double()).abs()
+        firm = w.abs() >= max(1e-5, max_lim * scale + atol)
+        if float(d.max()) > 2 * lr + 1e-7 or (
+                firm.any() and float(d[firm].max()) > 1e-2 * lr):
+            errors.append(f"phase 3n: parameter {k} after the step off "
+                             f"by {float(d.max()):.3e} (lr {lr})")
+        if scale > 10 * atol:
+            worst[group] = max(worst.get(group, (0.0, 0.0, "")),
+                               (l2, err / scale, k))
+    for k, v in one["state"].items():
+        if k.endswith(("running_mean", "running_var")):
+            err = float((got["state"][k].double() - v.double()).abs().max())
+            if err > TOL_DDP_STATS * float(v.abs().max()):
+                errors.append(f"phase 3n: BN statistic {k} off by {err}")
+    return worst
+
+
+def run_ddp():
+    """Phase 3n: multi-process training and evaluation (parallel/): (a)
+    the 3c step on two ranks sharing the card over gloo, a row each,
+    against one process on both rows; (b) one NCCL rank started from
+    torchrun's variables against no process group; (c) tools.train on two
+    ranks at the published config (3e's tree and imported HRNet); (d)
+    tools.test on two ranks over an odd count of 3d's frames against one
+    rank. Returns the run for phase 4's launch counts."""
+    import shutil
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+    from lidarseg3d_torch import synthetic as syn
+    from lidarseg3d_torch.apis import train as tr
+    from lidarseg3d_torch.apis.train import TrainState, save_checkpoint
+    from lidarseg3d_torch.models import build_detector
+    from lidarseg3d_torch.synthetic import (write_eval_config,
+                                            write_semantickitti_tree)
+    from lidarseg3d_torch.tools import test as eval_tool
+    from lidarseg3d_torch.utils.config import Config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t, d = TRAIN, DDP
+    tmp = tempfile.mkdtemp(prefix="ddp_3n_")
+    try:
+        # (a) inputs: 3c's model and a labelled B=2 batch, split in rows
+        batch = syn.synthetic_mseg3d_batch(2, t["V"], t["N"],
+                                           img_hw=t["img_hw"], seed=d["seed"],
+                                           with_labels=True)
+        rows = ddp_rows(batch, 2)
+        nvalid = [int(r["voxel_valid"].sum()) for r in rows]
+        job = dict(tmp=tmp, device=DEV, train=t,
+                   train_entry_per_step=TRAIN_ENTRY["per_step"],
+                   state=os.path.join(tmp, "state.pt"),
+                   batch=os.path.join(tmp, "batch.npz"),
+                   rows=[os.path.join(tmp, f"row{r}.npz") for r in (0, 1)],
+                   timed_steps=d["timed_steps"], train_steps=d["steps"])
+        np.savez(job["batch"], **{k: v for k, v in batch.items()
+                                  if isinstance(v, np.ndarray)})
+        for r, part in enumerate(rows):
+            np.savez(job["rows"][r], **{k: v for k, v in part.items()
+                                        if isinstance(v, np.ndarray)})
+        model = build_detector(syn.mseg3d_model_cfg(**t["cfg"]), device=DEV,
+                               seed=0)
+        torch.save(model.state_dict(), job["state"])
+        del model
+        ex = tr.example_to_device(batch, DEV)
+        model, state, step = ddp_step_model(job)
+        sync = torch.cuda.synchronize if DEV == "cuda" else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        state, ldict = step(state, ex)
+        sync()
+        one_ms = (time.perf_counter() - t0) * 1e3
+        one = ddp_record(model, ldict)
+        with torch.inference_mode():  # eval mode: the running statistics
+            model.eval()
+            both = model.image_branch(ex)["image_features"]
+            alone = torch.cat([model.image_branch(
+                {"images": ex["images"][i:i + 1]})["image_features"]
+                for i in (0, 1)])
+            img_rel = float((both - alone).abs().max() / both.abs().max())
+        del model, state, step
+        # the same step once more: the card's own run-to-run spread (the
+        # gathers' backward adds atomically)
+        model, state, step = ddp_step_model(job)
+        again = ddp_record(model, step(state, ex)[1])
+        one_times = []
+        for _ in range(d["timed_steps"]):
+            t0 = time.perf_counter()
+            check_losses(step(state, ex)[1], "one-process step")
+            sync()
+            one_times.append((time.perf_counter() - t0) * 1e3)
+        del model, state, step, ex
+        log(f"  (a) the 3c model's first step on one B=2 batch (valid "
+            f"voxels by row {nvalid}) in one process: {one_ms:.2f} ms "
+            f"(first call); then {d['timed_steps']} steps of "
+            f"{[round(x, 2) for x in one_times]} ms")
+
+        # (c) inputs: 3e's tree, config and imported HRNet
+        e, te = EVAL, TRAIN_ENTRY
+        job["train_dir"] = os.path.join(tmp, "train")
+        os.makedirs(job["train_dir"])
+        base = Config.fromfile(os.path.join(here, e["config"]))
+        root = os.path.join(job["train_dir"], "sequences")
+        write_semantickitti_tree(root, list(base.train_seq),
+                                 frames=te["frames"], points=te["points"],
+                                 seed=te["seed"], image_hw=te["image_hw"],
+                                 max_range=te["max_range"])
+        job["train_cfg"] = with_loader(
+            write_eval_config(os.path.join(job["train_dir"], "t.py"),
+                              os.path.join(here, e["config"]), root),
+            os.path.join(job["train_dir"], "train.py"), "thread")
+        hrnet = write_pretrained_hrnet(job["train_dir"],
+                                       base.model.img_backbone)
+        train_B = Config.fromfile(job["train_cfg"]).data.samples_per_gpu
+
+        # (d) inputs: an odd count of 3d's frames and a checkpoint of
+        # seeded weights with BN statistics calibrated on frame 0
+        job["eval_dir"] = os.path.join(tmp, "eval")
+        write_semantickitti_tree(
+            os.path.join(job["eval_dir"], base.data_root), ("08",),
+            frames=d["eval_frames"], points=e["points"], seed=e["seed"],
+            image_hw=e["image_hw"], max_range=e["max_range"])
+        ecfg_path = with_loader(os.path.join(here, e["config"]),
+                                os.path.join(job["eval_dir"], "eval.py"),
+                                "thread")
+        ecfg = Config.fromfile(ecfg_path)
+        cap, ishape = caps(ecfg), eval_tool.input_shape_of(ecfg)
+        model = build_detector(ecfg.model.to_dict(), device=DEV, seed=0)
+        calibrate_bn(model, first_example(
+            dataset_in(ecfg, "val", job["eval_dir"]), cap, ishape, DEV))
+        ework = os.path.join(job["eval_dir"], "work")
+        save_checkpoint(ework, TrainState(0, model, None, None), epoch=1)
+        del model
+        job["eval_args"] = [ecfg_path, "--checkpoint", ework, "--work_dir",
+                            ework, "--device", DEV]
+        cwd = os.getcwd()
+        os.chdir(job["eval_dir"])
+        try:
+            one_eval = eval_tool.main(job["eval_args"])
+        finally:
+            os.chdir(cwd)
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        ranks = ddp_spawn(ddp_rank, [(r, job) for r in (0, 1)], tmp,
+                          ["rank0.pt", "rank1.pt"], d["timeout_s"])
+        ranks_s = time.perf_counter() - t0
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            job["port"] = s.getsockname()[1]
+        t0 = time.perf_counter()
+        (nccl,) = ddp_spawn(ddp_nccl_one_rank, [(job,)], tmp, ["nccl.pt"],
+                            d["timeout_s"])
+        nccl_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (a) the two ranks against one process, and against each other; every
+    # check runs, and the phase fails at its end if one did not hold
+    errors = []
+    a = [r["step"] for r in ranks]
+    for r, x in enumerate(a):
+        if x["launches"] != t["per_step"]:
+            errors.append(f"phase 3n (a): rank {r} launched "
+                             f"{x['launches']} in its step, expected "
+                             f"{t['per_step']}")
+    worst = ddp_compare_step(one, a[0]["record"], errors)
+    spread = ddp_compare_step(one, again, [])
+    rel = ", ".join(
+        f"{k} {abs(a[0]['record']['losses'][k] - v) / max(abs(v), 1e-30):.2e}"
+        for k, v in one["losses"].items())
+    for when in ("first", "last"):
+        diff = [k for k, v in a[0][when].items() if a[1][when][k] != v]
+        if diff:
+            errors.append(f"phase 3n (a): the ranks' states differ after "
+                             f"the {when} step: {diff[:5]}")
+    steps = np.asarray([max(x, y) for x, y in zip(a[0]["times"],
+                                                  a[1]["times"])])
+    p50 = float(np.percentile(steps, 50))
+    log(f"  (a) two ranks sharing the card over gloo, B=1 each: launches per "
+        f"rank in the step {a[0]['launches']} (3c's per step); loss terms "
+        f"within {TOL_TRAIN_LOSS} of one process's (relative: {rel}); "
+        f"worst gradient (relative L2, max err / max) by group {worst} "
+        f"(limits {TOL_DDP_GRAD}; one process against itself: {spread}; "
+        f"the image branch's features in eval mode, each image alone "
+        f"against both at once: {img_rel:.3e} of their max); "
+        f"BN statistics within {TOL_DDP_STATS}; parameters bit-identical on "
+        f"both ranks after the first step and after "
+        f"{d['timed_steps']} more")
+    log(f"  (a) step of two ranks sharing one card (not a scaling figure): "
+        f"{[round(float(x), 2) for x in steps]} ms, p50 {p50:.2f}; one "
+        f"process at B=2 on the same card: p50 "
+        f"{float(np.percentile(one_times, 50)):.2f} ms; peak memory per rank "
+        f"{[round(x['peak_gib'], 2) for x in a]} GiB; all-reduces a step "
+        f"{a[0]['all_reduces']} ({a[0]['all_reduce_numel']} elements, the "
+        f"gradients' one among them)")
+
+    # (b) one NCCL rank from torchrun's variables against no group
+    rows_b = nccl["rows"]
+    exact = sum(v[0] for v in rows_b.values())
+    loose = {k: v for k, v in rows_b.items() if not v[0]}
+    over = {k: v for k, v in loose.items() if v[1] > 4 * v[2]}
+    bad_loss = {k: v for k, v in nccl["losses"].items()
+                if v[0] == v[1] and v[2] != v[0]}
+    if over or bad_loss:
+        errors.append(f"phase 3n (b): the one-rank NCCL step differs from "
+                         f"the step without a group beyond its own spread: "
+                         f"{dict(list(over.items())[:5])} {bad_loss}")
+    log(f"  (b) one NCCL rank from torchrun's variables: {exact} of "
+        f"{len(rows_b)} gradient and state tensors bit for bit as without a "
+        f"process group; {len(loose)} differ, each within 4x the spread of "
+        f"two runs without a group (deterministic algorithms on; "
+        f"{sum(1 for v in rows_b.values() if v[2] > 0)} tensors vary between "
+        f"those two runs); loss terms {nccl['losses']}")
+
+    # (c) tools.train on two ranks
+    c = [r["train"] for r in ranks]
+    want_files = ["epoch_1", "latest.txt", "train.log"]
+    nsteps = 2 * d["steps"]
+    want = {k: nsteps * v for k, v in te["per_step"].items()}
+    for r, x in enumerate(c):
+        if x["launches"] != want:
+            errors.append(f"phase 3n (c): rank {r} launched "
+                             f"{x['launches']}, expected {want}")
+        if x["resume_diff"] or x["resume_start"] != d["steps"]:
+            errors.append(f"phase 3n (c): rank {r}'s resume differs from "
+                             f"epoch_1 in {x['resume_diff'][:5]} or starts "
+                             f"at {x['resume_start']}")
+    if c[0]["files"] != want_files:
+        errors.append(f"phase 3n (c): the first run wrote {c[0]['files']}"
+                         f", expected {want_files}")
+    diff = [k for k, v in c[0]["digest"].items() if c[1]["digest"][k] != v]
+    if diff:
+        errors.append(f"phase 3n (c): the ranks' final states differ: "
+                         f"{diff[:5]}")
+    log(f"  (c) tools.train on two ranks (the published config, B="
+        f"{train_B} a rank, "
+        f"HRNet-w18 imported from a converted mmcv file of "
+        f"{len(hrnet['mmcv'])} tensors): 1 epoch of {d['steps']} steps wrote "
+        f"{c[0]['files']} once; the resume read epoch_1 exactly on both "
+        f"ranks and ran {d['steps']} more; launches per rank {c[0]['launches']}"
+        f"; {c[0]['moved']} parameters outside the frozen stages moved; "
+        f"final states bit-identical on both ranks; losses (global) "
+        + "; ".join(f"step {s}: loss {v['loss']:.4f}" for s, v in
+                    c[0]["losses"]))
+
+    # (d) tools.test on two ranks against one rank
+    dd = [r["eval"] for r in ranks]
+    toks = [set(x["detections"]) for x in dd]
+    if toks[0] & toks[1] or toks[0] | toks[1] != set(one_eval["detections"]):
+        errors.append(f"phase 3n (d): the ranks' frames {toks} do not "
+                         f"split {sorted(one_eval['detections'])}")
+    for x in dd:
+        for tok, det in x["detections"].items():
+            if not np.array_equal(det["pred_point_sem_labels"],
+                                  one_eval["detections"][tok][
+                                      "pred_point_sem_labels"]):
+                errors.append(f"phase 3n (d): labels of {tok} differ "
+                                 "from the one-rank run's")
+        if not same_results(x["results"]["results"],
+                            one_eval["results"]["results"]):
+            errors.append(f"phase 3n (d): results {x['results']} differ "
+                             f"from one rank's {one_eval['results']}")
+    per_frame = KEYS_KEYS_RANK_RANK
+    for r, x in enumerate(dd):
+        want = {k: 2 * v for k, v in per_frame.items()}  # frames a rank
+        if x["launches"] != want:
+            errors.append(f"phase 3n (d): rank {r} launched "
+                             f"{x['launches']}, expected {want}")
+    miou = one_eval["results"]["results"]["mIoU"]
+    log(f"  (d) tools.test on two ranks over {d['eval_frames']} frames: rank "
+        f"0 owns {sorted(toks[0])}, rank 1 {sorted(toks[1])} (its padding "
+        f"repeat of frame 0 evaluated, not counted); labels equal the "
+        f"one-rank run's on every frame; mIoU {miou:.4f} on both ranks and "
+        f"one rank")
+    log(f"  spawned ranks: {ranks_s:.1f} s for (a), (c) and (d); the NCCL "
+        f"rank {nccl_s:.1f} s")
+    if errors:
+        raise SystemExit("phase 3n:\n  " + "\n  ".join(errors[:40]))
+    launches = {k: sum(r[p]["launches"][k] for r in ranks
+                       for p in ("step", "train", "eval"))
+                for k in t["per_step"]}
+    result = dict(step_two_ranks_ms=steps.tolist(),
+                  step_two_ranks_p50_ms=p50,
+                  step_one_process_b2_ms=one_times,
+                  peak_memory_gib_per_rank=[x["peak_gib"] for x in a],
+                  all_reduces_per_step=a[0]["all_reduces"],
+                  worst_grad=worst, nccl_exact=exact,
+                  nccl_tensors=len(rows_b), eval_miou=miou,
+                  train_losses=c[0]["losses"])
+    return dict(result=result, launches=launches)
+
+
 def profile_call(fn, what, top=12, host_top=0):
     """fn() under torch.profiler: the share of its span in which a kernel
     ran on the card, and the kernels that took the most device time (with
@@ -3163,7 +3832,7 @@ def conv_kernel_sums(per_name):
 
 
 PHASES = ("3", "3b", "3c", "3d", "3e", "3f", "3g", "3h", "3i", "3j", "3k",
-          "3l", "3m", "4", "5")
+          "3l", "3m", "3n", "4", "5")
 
 
 def parse_args(argv):
@@ -3256,6 +3925,9 @@ def main(argv=None):
          lambda: {"polar_eval": run_eval_path(EVAL_POLAR, "3m"),
                   "polar_train": run_train_entry(TRAIN_POLAR, EVAL_POLAR,
                                                  "3m")}),
+        ("3n", "multi-process training and evaluation (two ranks sharing "
+         "the card over gloo; one NCCL rank from torchrun's variables)",
+         lambda: {"ddp": run_ddp()}),
     ]
     for ph, text, fn in steps:
         if ph in want:
@@ -3277,6 +3949,8 @@ def main(argv=None):
         phase("5: profile of one scan per inference path, one train step, "
               "and each inference path's structures+rulebooks build")
         for name, r in runs.items():
+            if "model" not in r:  # ran in processes of its own (3n)
+                continue
             log(f"  {name}:")
             training = "step" in r
             if training:

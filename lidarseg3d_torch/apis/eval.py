@@ -9,6 +9,13 @@ rows (SegCompoundAug, Reformat, the loader); their softmax is summed in
 variant order, divided by the count and the argmax taken (the reference's
 merge_type "ArithmeticMean"). ``run_eval_device_hist`` keeps even the
 confusion histogram on the device and moves a [C, C] array per batch.
+
+In a multi-process run each process evaluates its shard of the frames
+(the loader's sampler) and keeps the frames it owns: the repeated frames
+that pad the shards to equal lengths are dropped, so each frame is counted
+once when the datasets' evaluation sums the [C, C] histograms over the
+processes (parallel/dist.py ``allreduce_hist``). The JAX package keeps
+them, and counts a repeated frame once per process that holds it.
 """
 
 import time
@@ -18,6 +25,7 @@ import torch
 
 from ..core.seg_metrics import confusion_hist, per_class_iou
 from ..datasets.batching import pad_axis0
+from ..parallel import dist
 from .train import example_to_device, make_eval_step
 
 
@@ -27,10 +35,12 @@ def _device_of(state):
 
 def run_eval(model, state, loader, input_shape, dataset, logger=None,
              test_cfg=None, speed_test=False, latencies=None):
-    """-> {token: {"pred_point_sem_labels": [n]}} over the loader's epoch
-    0, n the frame's point count: int32 labels, or under
-    ``test_cfg["tta_flag"]`` the argmax (int64) of the mean softmax of the
-    frame's ``test_cfg["num_tta_tranforms"]`` variants (default 4); a
+    """-> {token: {"pred_point_sem_labels": [n]}} over the frames of the
+    loader's epoch 0 that this process owns (all of them in a single
+    process; ``EpochSampler.owned``), n the frame's point count: int32
+    labels, or under ``test_cfg["tta_flag"]`` the argmax (int64) of the
+    mean softmax of the frame's ``test_cfg["num_tta_tranforms"]``
+    variants (default 4); a
     frame with another number of rows raises, as the JAX package asserts.
 
     ``speed_test`` times each batch alone, from its dispatch to its labels
@@ -47,6 +57,7 @@ def run_eval(model, state, loader, input_shape, dataset, logger=None,
     eval_step = make_eval_step(model, input_shape)
     lat = [] if latencies is None else latencies
     detections, pending = {}, {}  # pending: token -> (softmax sum, count)
+    owned = loader.sampler.owned(0)
     for it, batch in enumerate(loader.epoch(0)):
         dev_batch = example_to_device(batch, dev)
         if speed_test:
@@ -69,6 +80,8 @@ def run_eval(model, state, loader, input_shape, dataset, logger=None,
         out = out.cpu().numpy()
         npts = batch["num_points_total"]
         for b, md in enumerate(batch["metadata"]):
+            if not owned[it, b // num_tta]:  # a frame's variants run on
+                continue
             token = md["token"] if md else f"frame_{it}_{b}"
             n = int(npts[b])
             if not tta:
@@ -99,21 +112,26 @@ def run_eval_device_hist(model, state, loader, input_shape, dataset,
     on the device, against each frame's label file as
     ``dataset.get_anno_for_eval`` reads it. Returns (miou, per-class IoU
     over classes 1..C-1, the [C, C] histogram); the ignore class 0 is
-    dropped from both axes, as ``fast_hist_crop`` does."""
+    dropped from both axes, as ``fast_hist_crop`` does. In a multi-process
+    run each process counts the frames it owns and the histograms are
+    summed over the processes."""
     dev = _device_of(state)
     eval_step = make_eval_step(model, input_shape)
     hist = torch.zeros(num_classes, num_classes, dtype=torch.int64,
                        device=dev)
-    for batch in loader.epoch(0):
+    owned = loader.sampler.owned(0)
+    for it, batch in enumerate(loader.epoch(0)):
         dev_batch = example_to_device(batch, dev)
         pred = eval_step(state, dev_batch)["pred_point_sem_labels"]
         n = batch["points"].shape[1]
         labels = np.stack([pad_axis0(dataset.get_anno_for_eval(md["token"])[
             "point_sem_labels"].astype(np.int64), n)
             for md in batch["metadata"]])
+        mine = torch.from_numpy(owned[it]).to(dev)[:, None]
         hist += confusion_hist(pred, torch.from_numpy(labels).to(dev),
-                               num_classes, valid=dev_batch["point_valid"])
-    hist = hist.cpu().numpy()
+                               num_classes,
+                               valid=dev_batch["point_valid"] & mine)
+    hist = dist.allreduce_hist(hist.cpu().numpy())
     ious = per_class_iou(hist[1:, 1:])
     miou = float(np.nanmean(ious))
     if logger is not None:
@@ -123,9 +141,20 @@ def run_eval_device_hist(model, state, loader, input_shape, dataset,
 
 def evaluate_dataset(dataset, detections, output_dir=None, testset=False,
                      logger=None):
+    """The dataset's evaluation of ``detections`` -> its result (None on
+    the test split, whose submission files it writes). In a multi-process
+    run every process evaluates its own detections on the val split (the
+    datasets sum the histograms over the processes) and rank 0 logs; on
+    the test split rank 0 gathers every process's detections and writes
+    the files."""
+    if testset and dist.world_size() > 1:
+        parts = dist.gather_to_main(detections)
+        if not dist.is_main_process():
+            return None
+        detections = {k: v for part in parts for k, v in part.items()}
     res, _ = dataset.evaluation(detections, output_dir=output_dir,
                                 testset=testset)
-    if res is not None and logger is not None:
+    if res is not None and logger is not None and dist.is_main_process():
         for k, v in res["results"].items():
             logger.info(f"{k}: {v:.2f}")
     return res

@@ -9,6 +9,13 @@ OneCycle over every step, a log line every ``log_interval`` steps, a
 checkpoint after each epoch, resume, validation and ``TrainerHook``
 events in the JAX package's order, and optionally TensorBoard scalars
 and a torch.profiler trace of five steps.
+
+In a multi-process run (parallel/dist.py) every rank runs the loop on its
+shard of each batch: the state is broadcast from rank 0 before the first
+step, the gradients are reduced after each backward (parallel/mesh.py),
+so every rank applies the global batch's update and the parameters stay
+identical; rank 0 alone logs, writes TensorBoard events, traces and
+writes checkpoints.
 """
 
 import os
@@ -18,7 +25,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from ..parallel import dist
+from ..parallel import dist, mesh
 from ..solver.optim import AdamState, build_one_cycle_optimizer
 from ..synthetic import example_to_device as _to_device
 
@@ -122,13 +129,16 @@ def apply_gradients(state, optimizer):
 
 def make_train_step(model, optimizer, input_shape):
     """-> train_step(state, batch) -> (state, loss dict with "grad_norm").
-    ``state.model`` must be ``model``; the update is in place."""
+    ``state.model`` must be ``model``; the update is in place. In a
+    multi-process run ``batch`` is this rank's rows, and the step is the
+    global batch's (the module docstring)."""
 
     def train_step(state, batch):
         if state.model is not model:
             raise ValueError("the train state holds another model")
         loss, ldict = forward_loss(state, batch, input_shape)
         loss.backward()
+        mesh.allreduce_gradients(model)
         ldict = {k: v.detach() for k, v in ldict.items()}
         ldict["grad_norm"] = apply_gradients(state, optimizer)
         return state, ldict
@@ -273,8 +283,9 @@ def train_segmentor(model, loader, input_shape, optimizer_cfg, lr_cfg,
     ``profile_dir``: a torch.profiler trace of global steps 10-14 (the
     last five of a shorter run) is written there. Returns the state."""
     os.makedirs(work_dir, exist_ok=True)
+    main = dist.is_main_process()
     tb = None
-    if tb_log_dir:
+    if tb_log_dir and main:
         from ..utils.tb_logger import TensorboardLogger
 
         tb = TensorboardLogger(tb_log_dir)
@@ -287,18 +298,21 @@ def train_segmentor(model, loader, input_shape, optimizer_cfg, lr_cfg,
     if init_hook is not None:
         state = init_hook(state)
     n_params = sum(p.numel() for p in model.parameters())
-    logger.info(f"model params: {n_params / 1e6:.2f} M; steps/epoch: "
-                f"{steps_per_epoch}; total steps: {total_steps}")
+    if main:
+        logger.info(f"model params: {n_params / 1e6:.2f} M; steps/epoch: "
+                    f"{steps_per_epoch}; total steps: {total_steps}")
 
     start_epoch = 0
-    if resume_from is not None:
+    if resume_from is not None:  # every rank reads the checkpoint
         epoch_sel = None if resume_from in (-1, True) else resume_from
         state, start_epoch = load_checkpoint(work_dir, state, epoch_sel)
-        logger.info(f"resumed from epoch {start_epoch}")
+        if main:
+            logger.info(f"resumed from epoch {start_epoch}")
+    state = mesh.broadcast_state(state)
     train_step = make_train_step(model, optimizer, input_shape)
     sync = (torch.cuda.synchronize if device.type == "cuda"
             else lambda *a: None)
-    prof = (None if not profile_dir
+    prof = (None if not (profile_dir and main)
             else _StepProfiler(profile_dir, total_steps, device))
 
     loop = dict(total_epochs=total_epochs, steps_per_epoch=steps_per_epoch,
@@ -332,6 +346,9 @@ def train_segmentor(model, loader, input_shape, optimizer_cfg, lr_cfg,
             global_step += 1
             if stop:
                 break
+            if not main:  # rank 0 logs the global loss terms
+                t_ready = time.perf_counter()
+                continue
             for k, v in ldict.items():
                 buf.setdefault(k, []).append(v)
             if (it + 1) % log_interval == 0:
@@ -352,7 +369,8 @@ def train_segmentor(model, loader, input_shape, optimizer_cfg, lr_cfg,
                 buf, t_data, t_iter = {}, 0.0, time.time()
             t_ready = time.perf_counter()
         save_checkpoint(work_dir, state, epoch + 1)
-        logger.info(f"saved checkpoint epoch_{epoch + 1}")
+        if main:
+            logger.info(f"saved checkpoint epoch_{epoch + 1}")
         if val_fn is not None:
             val_fn(state, epoch + 1)
         state, stop_after = _fire(hooks, "after_epoch", state, epoch + 1)

@@ -1,6 +1,6 @@
-"""Input pipeline: one process's sampling, prefetch by a pool of workers
-and the padded collate (own copy of EpochSampler and SegDataLoader in
-lidarseg3d_tpu/datasets/loader.py).
+"""Input pipeline: each process's shard of the sampling, prefetch by a
+pool of workers and the padded collate (own copy of EpochSampler and
+SegDataLoader in lidarseg3d_tpu/datasets/loader.py).
 
 Frame ``j`` of batch ``step`` in epoch ``epoch`` draws from
 ``np.random.default_rng((seed * 1_000_003 + epoch) * 1_000_003 + step * 64
@@ -110,45 +110,81 @@ def _shm_worker(ds_bytes, schema, shm_names, task_q, done_q, seed,
 
 
 class EpochSampler:
-    """Deterministic per-epoch shuffling for one process. The JAX
-    package's multi-host sharding (ROADMAP A6) and grouped shuffle come
-    with their first caller."""
+    """Deterministic per-epoch shuffling, sharded over ``num_hosts``
+    processes as the JAX package's sampler shards it: the epoch's order
+    (a permutation drawn from ``seed + epoch``, or dataset order) is
+    padded with its leading frames to a multiple of ``num_hosts``, and
+    process ``host_id`` takes every ``num_hosts``-th frame from its own
+    position. So every process takes the same number of batches. The JAX
+    package's grouped shuffle (``flags``) is left out: no dataset of the
+    port has more than one group."""
 
-    def __init__(self, n, batch_size, shuffle=True, seed=0, drop_last=True):
+    def __init__(self, n, batch_size, shuffle=True, seed=0, num_hosts=1,
+                 host_id=0, drop_last=True):
         self.n = n
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.num_hosts = num_hosts
+        self.host_id = host_id
         self.drop_last = drop_last
 
-    def epoch_indices(self, epoch):
+    def _shard(self, epoch):
+        """-> (this process's frames, and whether each is its frame's
+        first appearance in the padded epoch: False for the padding)."""
         idx = np.arange(self.n)
         if self.shuffle:
             idx = np.random.default_rng(self.seed + epoch).permutation(idx)
+        per_host = -(-len(idx) // self.num_hosts)
+        pad = per_host * self.num_hosts - len(idx)
+        if pad:
+            idx = np.concatenate([idx, idx[:pad]])
+        first = np.arange(len(idx)) < self.n
+        return (idx[self.host_id::self.num_hosts],
+                first[self.host_id::self.num_hosts])
+
+    def _batched(self, a, fill):
         if self.drop_last:
-            nb = len(idx) // self.batch_size
-            idx = idx[: nb * self.batch_size]
+            nb = len(a) // self.batch_size
+            a = a[: nb * self.batch_size]
         else:
-            nb = -(-len(idx) // self.batch_size)
-            idx = np.resize(idx, nb * self.batch_size)  # wraps if short
-        return idx.reshape(-1, self.batch_size)
+            nb = -(-len(a) // self.batch_size)
+            short = nb * self.batch_size - len(a)
+            # the frames wrap around if short (the padding is no frame's
+            # first appearance)
+            a = np.concatenate([a, np.resize(a, short) if fill is None
+                                else np.full(short, fill)])
+        return a.reshape(-1, self.batch_size)
+
+    def epoch_indices(self, epoch):
+        return self._batched(self._shard(epoch)[0], None)
+
+    def owned(self, epoch):
+        """[batches, batch_size] bools beside ``epoch_indices``: True where
+        this process evaluates the frame for the whole run, False on the
+        repeated frames that pad the shards and the last batch. Over all
+        processes each frame is True exactly once (unless drop_last drops
+        it)."""
+        return self._batched(self._shard(epoch)[1], False)
 
     def steps_per_epoch(self):
+        per_host = -(-self.n // self.num_hosts)
         if self.drop_last:
-            return self.n // self.batch_size
-        return -(-self.n // self.batch_size)
+            return per_host // self.batch_size
+        return -(-per_host // self.batch_size)
 
 
 class SegDataLoader:
-    """Prefetching loader producing padded numpy batches, built by a pool
-    of workers (``worker_mode``: ``thread``, ``process`` or ``shm``; see
-    the module's docstring). Use it as a context manager, or call
+    """Prefetching loader producing padded numpy batches of this process's
+    shard (``num_hosts``, ``host_id``: EpochSampler), built by a pool of
+    workers (``worker_mode``: ``thread``, ``process`` or ``shm``; see the
+    module's docstring). Use it as a context manager, or call
     ``shutdown``, to stop the workers."""
 
     def __init__(self, dataset, batch_size, max_voxels, max_points,
-                 shuffle=True, seed=0, num_workers=4, prefetch=4,
-                 drop_last=True, ignore_label=0, worker_mode="thread",
-                 on_overflow="warn"):
+                 shuffle=True, seed=0, num_hosts=1, host_id=0,
+                 num_workers=4, prefetch=4, drop_last=True, ignore_label=0,
+                 worker_mode="thread", on_overflow="warn"):
         if worker_mode not in MODES:
             raise ValueError(f"SegDataLoader worker_mode={worker_mode!r}: "
                              f"one of {MODES}")
@@ -157,7 +193,7 @@ class SegDataLoader:
         self.max_voxels = max_voxels
         self.max_points = max_points
         self.sampler = EpochSampler(len(dataset), batch_size, shuffle, seed,
-                                    drop_last)
+                                    num_hosts, host_id, drop_last)
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
         self.ignore_label = ignore_label

@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.resize import resize_bilinear
+from ...parallel import dist
 from ..layers import MaskedBatchNorm
 from ..registry import BACKBONES
 
@@ -28,16 +29,19 @@ def dropblock_mask(shape, drop_prob, block_size, generator, device):
     """DropBlock's keep mask [B, 1, H, W] and its scale: seeds drawn
     with probability gamma from ``generator``, grown to block_size^2 blocks
     (max pool, stride 1, SAME), keep = 1 - block, scale = the mask's size
-    / its kept count."""
+    / its kept count. In a multi-process run the mask and its scale are
+    the global batch's, and each rank keeps its rows (parallel/dist.py)."""
     B, _, H, W = shape
     gamma = (drop_prob / block_size ** 2 * (H * W)
              / max((H - block_size + 1) * (W - block_size + 1), 1))
-    u = torch.rand((B, 1, H, W), generator=generator, device=device)
+    u = torch.rand((B * dist.world_size(), 1, H, W), generator=generator,
+                   device=device)
     seeds = (u < gamma).to(torch.float32)
     block = F.max_pool2d(seeds, block_size, stride=1,
                          padding=block_size // 2)
     keep = 1.0 - block
-    return keep, keep.numel() / keep.sum().clamp(min=1.0)
+    return (dist.local_rows(keep),
+            keep.numel() / keep.sum().clamp(min=1.0))
 
 
 class DropBlock2D(nn.Module):

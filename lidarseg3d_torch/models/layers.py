@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import dist
 from ..utils import remat
 
 
@@ -50,9 +51,11 @@ class MaskedBatchNorm(nn.Module):
 
     In training mode the statistics run over the masked entries of all
     other dims (``mask`` has x's shape without the channel dim; None means
-    every entry), with ``cnt = max(sum(mask), 1)``: the biased variance
-    normalizes, the unbiased one (``var * cnt / max(cnt - 1, 1)``) goes
-    into the running variance, with torch momentum semantics
+    every entry) and, in a multi-process run, of every rank (the sums go
+    through ``parallel.dist.all_reduce_sum``, gradients included; a rank
+    without a valid entry is legal), with ``cnt = max(sum(mask), 1)``: the
+    biased variance normalizes, the unbiased one (``var * cnt / max(cnt -
+    1, 1)``) goes into the running variance, with torch momentum semantics
     ``running = (1 - m) * running + m * batch``; the running statistics
     are updated in place, outside the autograd graph, and not again when a
     recomputed region (utils/remat.py) runs the layer a second time for
@@ -79,17 +82,22 @@ class MaskedBatchNorm(nn.Module):
         xs = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             dims = [d for d in range(x.dim()) if d != cd]
-            if mask is None:
-                cnt = float(max(x.numel() // x.shape[cd], 1))
-                mean = xs.sum(dims) / cnt
-                var = ((xs - mean.view(shape)) ** 2).sum(dims) / cnt
-                unbias = cnt / max(cnt - 1.0, 1.0)
+            mf = None if mask is None else mask.to(xs.dtype).unsqueeze(cd)
+            if mf is None:
+                s1 = xs.sum(dims)
+                n = s1.new_full((), float(x.numel() // x.shape[cd]))
             else:
-                mf = mask.to(xs.dtype).unsqueeze(cd)
-                cnt = mf.sum().clamp(min=1.0)
-                mean = (xs * mf).sum(dims) / cnt
-                var = ((xs - mean.view(shape)) ** 2 * mf).sum(dims) / cnt
-                unbias = cnt / (cnt - 1.0).clamp(min=1.0)
+                s1 = (xs * mf).sum(dims)
+                n = mf.sum()
+            if dist.active():  # statistics over every rank's entries
+                tot = dist.all_reduce_sum(torch.cat([s1, n.view(1)]))
+                s1, n = tot[:-1], tot[-1]
+            cnt = n.clamp(min=1.0)
+            mean = s1 / cnt
+            dev2 = (xs - mean.view(shape)) ** 2
+            var = dist.all_reduce_sum(
+                (dev2 if mf is None else dev2 * mf).sum(dims)) / cnt
+            unbias = cnt / (cnt - 1.0).clamp(min=1.0)
             if remat.phase() != "recompute":
                 self._update_running(mean, var, unbias)
         else:

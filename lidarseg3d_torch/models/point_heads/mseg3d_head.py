@@ -2,7 +2,9 @@
 lidarseg3d_tpu/models/point_heads/mseg3d_head.py:123 PointSegMSeg3DHead).
 In training mode the voxel features pass a dropout drawn from an explicit
 ``torch.Generator`` and every BN takes masked batch statistics;
-``get_loss`` gives the five point-head losses.
+``get_loss`` gives the five point-head losses. In a multi-process run the
+dropout mask, the statistics and the losses are the global batch's
+(parallel/dist.py).
 
 Voxel aux classifier, 3-NN devoxelization, camera features by bilinear
 point-to-pixel sampling, cross-modal completion (mimic MLP), GF-Phase
@@ -19,6 +21,7 @@ from torch import nn
 from ...ops import grid_sample as gs
 from ...ops import interpolate as interp
 from ...ops import losses as L
+from ...parallel import dist
 from ...utils import remat
 from ..layers import MaskedBatchNorm, MLPHead, TorchLinear
 from ..registry import POINT_HEADS
@@ -183,8 +186,13 @@ class PointSegMSeg3DHead(nn.Module):
                 # a recompute would draw another mask from the generator
                 raise RuntimeError("the point head's dropout must stay "
                                    "outside every recomputed region")
-            keep = torch.rand(x.shape, generator=generator, device=x.device,
-                              dtype=x.dtype) >= self.dp_ratio
+            # the global batch's mask, from a generator identical on every
+            # rank: each rank keeps its rows (parallel/dist.py); drawn in
+            # fp32 whatever the features' dtype
+            draw = torch.rand((x.shape[0] * dist.world_size(),
+                               *x.shape[1:]), generator=generator,
+                              device=x.device, dtype=torch.float32)
+            keep = dist.local_rows(draw) >= self.dp_ratio
             x = x * keep / (1.0 - self.dp_ratio)
         voxel_logits = self.MLPHead_0(x, mask=vmask)
 
@@ -253,8 +261,8 @@ class PointSegMSeg3DHead(nn.Module):
         iv = ret["in_view"][..., None].to(ol.dtype)
         diff = (ret["point_features_pcamera"]
                 - ret["point_features_camera"].detach()) * iv
-        mimic = (diff ** 2).sum() / (iv.sum() * diff.shape[-1]).clamp(
-            min=1.0)
+        mimic = dist.global_ratio((diff ** 2).sum(),
+                                  iv.sum() * diff.shape[-1])
 
         loss = voxel_ce + voxel_lvsz + out_ce + out_lvsz + mimic
         return loss, {

@@ -5,9 +5,16 @@ Lovász-softmax: per class, the sorted errors dotted with the Lovász
 gradient, averaged over the classes present in the valid labels. Padding
 and ignored entries carry zero error and zero foreground and are sorted to
 the back, so they contribute to no prefix that holds a valid element.
+
+In a multi-process run both losses are those of the global batch, as in
+the JAX package's SPMD step: the cross-entropy's sums are summed over the
+ranks before the division, and Lovász sorts the rows of every rank
+(parallel/dist.py). Every rank then holds the same loss value.
 """
 
 import torch
+
+from ..parallel import dist
 
 
 def cross_entropy(logits, labels, ignore_index=0, valid=None):
@@ -20,7 +27,7 @@ def cross_entropy(logits, labels, ignore_index=0, valid=None):
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, safe[:, None])[:, 0]
     okf = ok.to(logits.dtype)
-    return (nll * okf).sum() / okf.sum().clamp(min=1.0)
+    return dist.global_ratio((nll * okf).sum(), okf.sum())
 
 
 def lovasz_softmax(probas, labels, ignore=None, valid=None,
@@ -35,12 +42,16 @@ def lovasz_softmax(probas, labels, ignore=None, valid=None,
     descending, so ties fall as the JAX package's ``argsort(-key)`` puts
     them: the loss does not depend on the order of ties, the per-element
     gradient does."""
-    N, C = probas.shape
-    ok = torch.ones(N, dtype=torch.bool, device=probas.device)
+    ok = torch.ones(probas.shape[0], dtype=torch.bool, device=probas.device)
     if ignore is not None:
         ok = ok & (labels != ignore)
     if valid is not None:
         ok = ok & valid
+    if dist.active():  # the rows of every rank, in the global batch's order
+        probas = dist.gather_rows(probas)
+        labels = dist.gather_rows(labels.to(torch.int64))
+        ok = dist.gather_rows(ok.to(torch.uint8)).bool()
+    N, C = probas.shape
     okf = ok.to(probas.dtype)
     cls = torch.arange(C, device=probas.device)
     fg = ((labels[None, :] == cls[:, None]) & ok[None, :]).to(probas.dtype)

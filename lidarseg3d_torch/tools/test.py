@@ -3,7 +3,9 @@ submission files on test (the port's counterpart of tools/test.py).
 
     python -m lidarseg3d_torch.tools.test CONFIG --checkpoint WORK_DIR[/epoch_N]
         [--work_dir DIR] [--testset] [--speed_test] [--tta] [--batch_size N]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--dist_coordinator HOST:PORT|URL
+        --dist_num_processes N --dist_process_id I] [--dist_share_card]
+    torchrun --nproc_per_node N -m lidarseg3d_torch.tools.test CONFIG ...
 
 The model is built from the config, its weights and BN statistics loaded
 from a checkpoint of ``apis.train.save_checkpoint`` (``WORK_DIR`` reads
@@ -19,7 +21,15 @@ SegVoxelization, which voxelizes every variant, each frame becomes
 config whose ``test_cfg`` sets ``tta_flag`` expects the variants, so it
 fails without ``--tta``, as in the JAX package. The device is ``cuda``
 unless ``--device cpu`` is given, and the tool raises when there is no
-card. Not ported yet: the detection models and multi-process runs.
+card.
+
+On several processes (torchrun or the ``--dist_*`` flags, as
+``tools.train``) each process evaluates its shard of the frames, TTA
+variants with their frame, and counts the frames it owns: the histograms
+are summed over the processes, so every frame counts once and every
+process returns the mIoU of the whole split; rank 0 logs it, and on the
+test split rank 0 gathers the predictions and writes the files. Not
+ported: the detection models.
 """
 
 import argparse
@@ -28,6 +38,8 @@ import os
 import sys
 
 import numpy as np
+
+from .train import add_dist_args, start_ranks
 
 
 def parse_args(argv=None):
@@ -41,17 +53,19 @@ def parse_args(argv=None):
     p.add_argument("--tta", action="store_true")
     p.add_argument("--batch_size", default=1, type=int)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    add_dist_args(p)
     return p.parse_args(argv)
 
 
-def _logger():
+def _logger(main):
+    """The tool's logger to stdout: INFO on rank 0, warnings elsewhere."""
     logger = logging.getLogger("lidarseg3d_torch.tools.test")
     if not logger.handlers:
         handler = logging.StreamHandler(sys.stdout)
         handler.setFormatter(logging.Formatter("%(message)s"))
         logger.addHandler(handler)
-        logger.setLevel(logging.INFO)
         logger.propagate = False
+    logger.setLevel(logging.INFO if main else logging.WARNING)
     return logger
 
 
@@ -81,22 +95,32 @@ def tta_dataset_cfg(ds_cfg, tta_cfg):
 
 
 def main(argv=None):
-    """Run the evaluation; returns {"detections", "results" (the dataset's
-    evaluation, None on the test split), "latencies" (seconds per frame of
-    each batch under --speed_test), "state" (the loaded model's train
-    state)}."""
+    """Run the evaluation; returns {"detections" (of the frames this
+    process owns), "results" (the dataset's evaluation, None on the test
+    split), "latencies" (seconds per frame of each batch under
+    --speed_test), "state" (the loaded model's train state)}. A process
+    group this call starts ends with it."""
+    from ..parallel import dist
+
     args = parse_args(argv)
+    owner = not dist.active()
+    try:
+        return _evaluate(args, *start_ranks(args)[:3])
+    finally:
+        if owner:
+            dist.shutdown()
+
+
+def _evaluate(args, rank, world, device):
     from ..apis.eval import evaluate_dataset, run_eval
     from ..apis.train import TrainState, load_checkpoint
     from ..datasets import SegDataLoader, build_dataset, default_worker_mode
     from ..models import build_detector
     from ..utils.config import Config
-    from ..utils.device import resolve_device
 
-    device = resolve_device(args.device)
     cfg = Config.fromfile(args.config)
     work_dir = args.work_dir or cfg.get("work_dir", ".")
-    logger = _logger()
+    logger = _logger(rank == 0)
 
     split = "test" if args.testset else "val"
     ds_cfg = cfg.data[split].to_dict()
@@ -115,6 +139,7 @@ def main(argv=None):
         dataset, batch_size=args.batch_size,
         max_voxels=cap.get("max_voxels", 160000),
         max_points=cap.get("max_points", 140000), shuffle=False,
+        num_hosts=world, host_id=rank,
         num_workers=cfg.data.get("workers_per_gpu", 4),
         worker_mode=default_worker_mode(cfg.data), drop_last=False)
 

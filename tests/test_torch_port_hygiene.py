@@ -1,12 +1,12 @@
 """Hygiene of the port: lidarseg3d_torch (its solver, apis, losses,
 datasets, the train pipeline's augmentations, colour-space and JPEG
 modules, the nuScenes dataset, info builder and JPEG reader, SegNet's
-reader, head and segmentor, and tools included), chip_smoke.py and the profile_*.py
-scripts import nothing of JAX, Flax, optax, the JAX package or
-__graft_entry__, and no image library (cv2, PIL, imageio: the card's
-machine has none); the entry points run on cuda unless told otherwise;
-the constants the CPU emulations read from the kernel wrappers are the
-kernel sources' own."""
+reader, head and segmentor, the multi-process runtime, and tools
+included), chip_smoke.py and the profile_*.py scripts import nothing of
+JAX, Flax, optax, the JAX package or __graft_entry__, and no image
+library (cv2, PIL, imageio: the card's machine has none); the entry
+points run on cuda unless told otherwise; the constants the CPU
+emulations read from the kernel wrappers are the kernel sources' own."""
 
 import ast
 from pathlib import Path
@@ -43,6 +43,8 @@ POLAR_MODULES = ("apis/pretrain.py", "tools/convert_hrnet_checkpoint.py",
                  "models/backbones/polarnet_unet.py",
                  "models/point_heads/polarnet_head.py",
                  "models/segmentors/seg_polarnet.py", "utils/tb_logger.py")
+DIST_MODULES = ("parallel/mesh.py", "models/layers.py",
+                "models/point_heads/mseg3d_head.py")
 SCRIPTS = ("chip_smoke.py", "profile_build.py", "profile_convs.py",
            "profile_merge.py")
 
@@ -67,7 +69,8 @@ def test_port_imports_no_jax():
               for p in files[:-len(SCRIPTS)]}
     wanted = (set(TRAINING_MODULES) | set(EVAL_MODULES)
               | set(TRAIN_ENTRY_MODULES) | set(NUSC_MODULES)
-              | set(SEGNET_MODULES) | set(POLAR_MODULES))
+              | set(SEGNET_MODULES) | set(POLAR_MODULES)
+              | set(DIST_MODULES))
     assert wanted <= listed, wanted - listed
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imports(p) if m.split(".")[0] in FORBIDDEN]

@@ -28,8 +28,9 @@ frames.
   (dropout on); the resumed run starts at global step 2, and the learning
   rate there equals the JAX ``lr_fn``'s (float32) within 1e-6 relative.
 - The tool from the command line with ``--device cpu --validate`` writes
-  its checkpoints and prints an mIoU; its unported options raise, and so
-  does a frame that its shm workers cannot read."""
+  its checkpoints and prints an mIoU; an incomplete set of ``--dist_*``
+  flags raises, a process group that does not start ends the run, and a
+  frame that its shm workers cannot read raises."""
 
 import copy
 import os
@@ -342,9 +343,25 @@ def test_cli_trains_checkpoints_and_validates(setup, tmp_path):
                                   ["--dist_coordinator", "localhost:1",
                                    "--dist_num_processes", "2",
                                    "--dist_process_id", "0"]])
-def test_cli_refuses_unported_flags(setup, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+def test_cli_refuses_unported_flags(setup, flag, monkeypatch):
+    """The --dist_* flags: an incomplete set is refused; a complete one
+    starts the process group it names, and a start that fails ends the
+    run (no single-process fallback)."""
+    import torch.distributed as tdist
+
+    seen = []
+
+    def no_coordinator(backend, init_method, world_size, rank):
+        seen.append((backend, init_method, world_size, rank))
+        raise RuntimeError("no coordinator at " + init_method)
+
+    monkeypatch.setattr(tdist, "init_process_group", no_coordinator)
+    complete = len(flag) == 6
+    with pytest.raises(RuntimeError if complete else ValueError,
+                       match="coordinator"):
         tool.main([setup["cfg_path"], "--device", "cpu"] + flag)
+    assert seen == ([("gloo", "tcp://localhost:1", 2, 0)] if complete
+                    else [])
 
 
 def test_existing_pretrained_raises_and_missing_one_warns(setup, tmp_path,
