@@ -109,7 +109,7 @@ exit):
      with --tta on a 3-frame one (four variant rows a frame, their softmax
      merged); the checks of 3d (launches per frame, labels, spread, mIoU,
      the device histogram without TTA, frame 0 card vs CPU with and without
-     TTA), no mini config;
+     TTA), no mini config; 3h-3j take the loader's threads;
   3i. sdseg-train: the same config trained as in 3e at its
      samples_per_gpu=4 (the only B=4 path; TransVFE's layers recomputed in
      the backward), 1 epoch of 2 steps and a resume; per step 36 + 36 dX
@@ -162,6 +162,35 @@ exit):
      3d's, the ranks split the frames (rank 1's padding repeat of frame 0
      evaluated, not counted), the labels equal one rank's on every frame
      and the mIoU equals one rank's;
+  3o. waymo-eval: the published SemanticWaymo MSeg3D config
+     (configs/semanticwaymo/MSeg3D/semwaymo_avgvfe_unetscn3d_hrnetw18_lr1en2_e12.py:
+     0.1 x 0.1 x 0.15 m grid 41x1504x1504, capacity 240000 voxels /
+     196608 points, 23 classes, five cameras 1920x1280 / 1920x886 resized
+     to 960x640, HRNet-w18 frozen_stages=3) at full width as in 3d (BN
+     calibrated on frame 0, tools.test with --speed_test, the loader's
+     threads)
+     on three validation frames of a seeded tree
+     (synthetic.write_semanticwaymo_tree, written once a run: ~186,700
+     points and ~140,000 voxels a frame), then its lidar-only baseline
+     (SegNet, the batch-loss head; threads); the checks of 3d (launches
+     per frame (keys, keys, rank, rank), labels over the labelled TOP
+     points, spread, mIoU, the device histogram, frame 0 card vs CPU);
+     the host pipeline by stage and one 1920x1280 JPEG read;
+  3p. waymo-train: both configs trained through tools.train at B=2
+     (samples_per_gpu; MSeg3D from its imported pretrained HRNet-w18),
+     on four training frames of the same tree: 1 epoch of 2 steps and a
+     resume that must equal the checkpoint exactly; the checks and
+     numbers of 3e, the peak memory (the loader's threads; 3e and 3g's
+     resumes take threads too, their first runs the config's mode);
+  3q. bf16 training and HRNet-w48: 3c's full-width step with the image
+     branch in bf16 (HRNet and the FCN head compute_dtype="bfloat16",
+     parameters, BN statistics and Adam in fp32; its launches, every
+     parameter moved, and a step with every remat option on), a small
+     seeded bf16 step card vs CPU within the bf16 limits of
+     tests/test_torch_port_bf16_train.py (TOL_BF16_*; HRNet's BN on
+     running statistics), and HRNet-w48 at one 640x960 image, forward and
+     a training forward card vs CPU, its gradients at 384x256 against
+     float64 (TF32 convolutions the control), a training step timed;
   4. hold each kernel against its plain version on the card at each main
      path's shapes, from a real scan of that path: the rulebook conv in
      fp32 and bf16 (stage-1 subm, stage-1->2 strided, stage-4 subm; and as
@@ -196,7 +225,12 @@ exit):
      strided and inverse), the points' lookup through the merge kernel
      (queries in point order), the conv at K = 9 and 3, the 17-class
      classifier 64->17 and its dX 17->64 (fp32), the (2,2,1) strided and
-     inverse convs, and the dW of those shapes at B=2. The
+     inverse convs, and the dW of those shapes at B=2; from a frame of
+     waymo-eval (V=240000) and a B=2 batch of waymo-train (2 x 240000
+     rows), the input conv 13->32, the stride-2 conv, the stage-1 dX and
+     dW at B=2, every rulebook on both table kinds, the merge on the
+     stage-1 and stage-2 KeyTables and the pack and lookup on the stage-3
+     RankTable. The
      rulebook lookups: all
      10 rulebooks of each path's structures (semkitti, train at B=2,
      semnusc, eval, train entry at B=2, eval-nu, train-nu at B=3,
@@ -283,7 +317,7 @@ TRAIN = dict(cfg=dict(ratio=2), B=2, V=131072, N=122880, img_hw=(384, 1280),
 # (c) tools.train at the published config on two ranks, an epoch of
 # ``steps`` and a resume; (d) tools.test on two ranks over ``eval_frames``
 # (odd) frames of 3d's tree
-DDP = dict(seed=100, timed_steps=3, steps=2, eval_frames=3, timeout_s=900)
+DDP = dict(seed=100, timed_steps=1, steps=2, eval_frames=3, timeout_s=900)
 TOL_DDP_STATS = 1e-4
 # (a)'s gradients (relative L2, max |err| / max). The ranks' step is one
 # process's exactly in float64 (tests/test_torch_port_ddp_train.py: 1e-9,
@@ -363,18 +397,21 @@ TRAIN_NU = dict(scenes=("scene-0001", "scene-0002", "scene-0041"),
 # phase 3e's but 36 + 36 dX convs (TransVFE's output needs a gradient, so
 # the input conv runs its dX too); 3j: the nuScenes _tta config with --tta
 # (six variant rows a frame) on a seeded val scene. Tables (keys, keys,
-# rank, rank) on every one
+# rank, rank) on every one. Their loaders run as threads: their
+# pipelines read no camera, and an shm loader's start (~10 s) is phases
+# 3d-3g's subject
 SD_KITTI = "configs/semantickitti/SDSeg3D/semkitti_transVFE_unetscn3d_batchloss_e10"
 EVAL_SD = dict(config=SD_KITTI + ".py", frames=4, points=(120000, 125000),
-               seed=4, image_hw=(376, 1241), max_range=75.0, ncls=20)
+               seed=4, image_hw=(376, 1241), max_range=75.0, ncls=20,
+               loader="thread")
 EVAL_SD_TTA = dict(EVAL_SD, config=SD_KITTI + "_tta.py", frames=3, seed=5,
                    tta=True)
-TRAIN_SD = dict(TRAIN_ENTRY, seed=6, epochs=1, steps=2,
+TRAIN_SD = dict(TRAIN_ENTRY, seed=6, epochs=1, steps=2, loader="thread",
                 per_step={**TRAIN_ENTRY["per_step"], "rulebook_conv": 72})
 EVAL_SD_NU = dict(config="configs/semanticnusc/SDSeg3D/"
                   "semnusc_transvfe_unetscn3d_batchloss_e48_tta.py",
                   scenes=("scene-0003",), samples=3, points=(30000, 34688),
-                  seed=7, ncls=17, tta=True, cams=False)
+                  seed=7, ncls=17, tta=True, cams=False, loader="thread")
 # phases 3k-3m: the SegPolarNet family at its published nuScenes configs
 # (no host voxelization: the readers voxelize on the card; camera-less
 # trees). Launches per frame (B=1) and per step (B=2), read from the
@@ -417,6 +454,53 @@ EVAL_POLAR = dict(EVAL_CYL, config=POLAR, seed=12, per_frame=NO_KERNEL,
                   tables=None, cpu_frame=False)
 TRAIN_POLAR = dict(TRAIN_CYL, seed=13, batch_size=2, tables=None,
                    per_step=NO_KERNEL)
+# phases 3o-3p: the published SemanticWaymo configs (0.1 x 0.1 x 0.15 m
+# grid 41x1504x1504, capacity 240000 voxels / 196608 points; MSeg3D with
+# five cameras 1920x1280 / 1920x886 resized to 960x640, HRNet-w18
+# frozen_stages=3, no remat; and its lidar-only SegNet baseline) on one
+# seeded tree (synthetic.write_semanticwaymo_tree: ~186,700 points a
+# frame, ~140,000 voxels) written once a run: three validation frames
+# (3o) and four training frames (3p, B=2: an epoch of 2 steps and a
+# resume). Launches per frame and per step, read from the dispatch: the
+# tables are (keys, keys, rank, rank) as on the 0.1 m SemanticKITTI
+# config; the baseline's ImprovedMeanVFE has no parameters, so its input
+# conv runs no dX either (71 convs a step). The loader runs threads (the
+# shm workers' start cost ~20 s a run; 3d-3g drive shm)
+WAYMO = "configs/semanticwaymo/MSeg3D/semwaymo_avgvfe_unetscn3d_"
+WAYMO_TREE = dict(frames={"training": 4, "validation": 3}, seed=14)
+EVAL_WAYMO = dict(config=WAYMO + "hrnetw18_lr1en2_e12.py", waymo=True,
+                  frames=3, ncls=23, loader="thread")
+EVAL_WAYMO_BASE = dict(EVAL_WAYMO, config=WAYMO
+                       + "lidarbaseline_lr1en2_e12.py", cams=False)
+TRAIN_WAYMO = dict(waymo=True, epochs=1, steps=2, pretrained_import=True,
+                   per_step=TRAIN_ENTRY["per_step"], loader_modes=(),
+                   loader="thread")
+TRAIN_WAYMO_BASE = dict(TRAIN_WAYMO, pretrained_import=False)
+# phase 3q: 3c's step with the image branch in bf16 (HRNet and the FCN
+# head compute_dtype="bfloat16"; parameters, BN statistics and Adam fp32)
+# at full width, then a small seeded bf16 step on the card against the
+# CPU within the limits of tests/test_torch_port_bf16_train.py (HRNet's BN
+# on running statistics: at random weights batch statistics make its
+# stage-4 gradient chaotic; relative L2 over each group's tensors
+# together, set between the port-against-JAX reading and a zeroed
+# group's 1.0); and HRNet-w48 at one 640x960 image, forward and a
+# training step, card against CPU
+TRAIN_BF16 = dict(TRAIN, cfg=dict(ratio=2, img_bf16=True), steps=2)
+TOL_BF16_LOSS, TOL_BF16_GRAD_NORM = 1e-3, 1e-2
+TOL_BF16_GRAD = {"lidar+head": 0.05, "image head": 0.25,
+                 "image backbone": 0.4}
+# w48 card vs CPU at 640x960: outputs max |err| / max |CPU| in evaluation
+# and in training (batch statistics), and the running statistics. The
+# gradients at W48_GRAD_HW against a float64 step on the CPU: the card's
+# worst relative L2 over the tensors within TOL_W48_GRAD times the CPU
+# fp32's own (plus 1e-4); fp32 order noise through ~200 BN layers of
+# random weights puts either side within a few times the other (read at
+# 384x256 on an H100: card 2.50e-2, CPU 1.46e-2). The control printed
+# beside it, the card's step with TF32 convolutions (read 0.67), is what
+# the limit must fail
+TOL_W48_OUT = 1e-3
+TOL_W48_GRAD = 3.0
+W48_HW, W48_GRAD_HW = (640, 960), (256, 384)
 # frames the host pipeline is timed on, one at a time (phases 3d-3j)
 PIPELINE_FRAMES = 2
 # card vs CPU through the entry point (phase 3's limits)
@@ -1408,6 +1492,7 @@ def kernel_checks(runs):
             del xb, xst, x32
 
         check_nusc_paths(report, runs, gen)
+        check_waymo_paths(report, runs, gen)
         check_sdseg_paths(report, runs, gen)
         check_cyl_paths(report, runs, gen)
 
@@ -1439,6 +1524,56 @@ def kernel_checks(runs):
         check_edges(gen)
     torch.cuda.empty_cache()
     return report
+
+
+def check_waymo_paths(report, runs, gen):
+    """Phase 4's rows of the SemanticWaymo paths (phases 3o, 3p): from a
+    real frame of waymo-eval (V=240000) and a real B=2 batch of waymo-train
+    (2 x 240000 rows), the input conv 13->32 (fp32: 13 bf16 values are not
+    a multiple of 4 bytes), the stride-2 conv 32->64, the stage-1 dX
+    32->32 and the dW 32->32 at B=2, every rulebook on both table kinds,
+    the merge on the stage-1 and stage-2 KeyTables, and the pack and the
+    fused lookup on the stage-3 RankTable."""
+    import torch
+    from lidarseg3d_torch.ops import coords as co
+
+    for name in ("waymo_eval", "waymo_train"):
+        if name not in runs:
+            continue
+        m, ex = runs[name]["model"], runs[name]["ex0"]
+        with torch.no_grad():
+            st = m.lidar_input(ex)
+        b = m.backbone_mod.structures(st.structure)
+        B, V = st.features.shape[:2]
+        cin = st.features.shape[-1]
+        log(f"  {name} stage voxels: " + " ".join(
+            f"s{i}={b[f's{i}'].num_voxels.tolist()}/{b[f's{i}'].capacity}"
+            for i in range(1, 5)))
+        check_conv(report, f"{name} subm {cin}->32 B={B} V={V}",
+                   st.features.detach(), b["subm1"], cin, 32, gen,
+                   dtypes=("fp32",))
+        f32 = torch.rand(B, V, 32, generator=gen).to(DEV)
+        check_conv(report, f"{name} strided 32->64 B={B} {V}->"
+                   f"{b['s2'].capacity}", f32, b["down2"], 32, 64, gen)
+        if name == "waymo_train":
+            check_conv(report, f"dX of subm 32->32 {name} B={B} V={V}",
+                       f32, b["subm1"], 32, 32, gen, dx=True)
+            check_dw(report, f"{name} subm B={B} V={V}", f32, b["subm1"],
+                     32, 32, gen)
+        del f32
+        check_path_rulebooks(report, name, b)
+        for i in (1, 2):
+            Z, Y, X = b[f"s{i}"].spatial_shape
+            check_merge(report, f"{name} stage-{i} subm B={B} "
+                        f"{Z * Y * (X + 2)} cells", b[f"t{i}"],
+                        subm_stream(b, i))
+        s3 = b["s3"]
+        act3 = co.activity(s3.coords, s3.num_voxels, s3.spatial_shape)
+        nce3 = act3.shape[1] - 1
+        check_pack(report, f"{name} stage-3 B={B} {nce3} cells", act3, nce3)
+        check_lookup(report, f"{name} stage-3 B={B} {nce3} cells",
+                     b["t3"].packed, subm_stream(b, 3))
+        del b, st, act3
 
 
 def check_nusc_paths(report, runs, gen):
@@ -1986,6 +2121,197 @@ def run_train(t=TRAIN):
                 state=state, step=step)
 
 
+def bf16_group(name):
+    if name.startswith("img_backbone_mod."):
+        return "image backbone"
+    return "image head" if name.startswith("img_head_mod.") \
+        else "lidar+head"
+
+
+def small_bf16_check():
+    """One train step of a small seeded model with the image branch in
+    bf16 (ratio 1, small HRNet with frozen_stages=3 and its BN on running
+    statistics, no dropout) on one labelled batch, on the card and on the
+    CPU: the loss terms, the gradient norm and the gradients by group
+    within the bf16 limits (TOL_BF16_*); the CPU's same step with the
+    image branch in fp32 is printed beside, the spread bf16 itself
+    makes."""
+    import torch
+    from lidarseg3d_torch import synthetic as syn
+    from lidarseg3d_torch.apis import train as tr
+    from lidarseg3d_torch.models import build_detector
+
+    b = syn.synthetic_mseg3d_batch(2, 4096, 4096, img_hw=(64, 128), seed=8,
+                                   with_labels=True)
+    out = {}
+    for key, dev, bf16 in ((DEV, DEV, True), ("cpu", "cpu", True),
+                           ("cpu fp32", "cpu", False)):
+        cfg = syn.mseg3d_model_cfg(ratio=1, small_hrnet=True, img_bf16=bf16)
+        cfg["img_backbone"].update(frozen_stages=3, norm_eval=True)
+        cfg["point_head"]["model_cfg"]["DP_RATIO"] = 0
+        m = build_detector(cfg, device=dev, seed=3)
+        _, state, step = train_setup(
+            m, dict(type="adam", wd=0.01), dict(lr_max=2e-3), 12, 35.0,
+            syn.grid_shape())
+        state, ldict = step(state, tr.example_to_device(b, dev))
+        out[key] = (check_losses(ldict, f"small bf16 step on {key}"),
+                    {k: p.grad.detach().double().cpu()
+                     for k, p in m.named_parameters() if p.grad is not None})
+    cpu = out["cpu"]
+
+    def by_group(side, ref):
+        acc = {g: [0.0, 0.0] for g in TOL_BF16_GRAD}
+        for k, want in ref[1].items():
+            a = acc[bf16_group(k)]
+            a[0] += float((side[1][k] - want).square().sum())
+            a[1] += float(want.square().sum())
+        return {g: (n / d) ** 0.5 for g, (n, d) in acc.items()}
+
+    got, spread = by_group(out[DEV], cpu), by_group(out["cpu fp32"], cpu)
+    loss = {k: abs(out[DEV][0][k] - v) / abs(v) for k, v in cpu[0].items()}
+    log("  small bf16 train step card vs CPU: loss terms, relative: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in loss.items())
+        + f" (limits {TOL_BF16_LOSS}, grad_norm {TOL_BF16_GRAD_NORM})")
+    log("    gradients, relative L2 by group: " + ", ".join(
+        f"{g} {got[g]:.3e} (limit {TOL_BF16_GRAD[g]}; the CPU's fp32 image "
+        f"branch against its bf16 one {spread[g]:.3e})" for g in got))
+    bad = [k for k, v in loss.items() if v > (
+        TOL_BF16_GRAD_NORM if k == "grad_norm" else TOL_BF16_LOSS)]
+    bad += [g for g, e in got.items() if not e <= TOL_BF16_GRAD[g]]
+    if bad:
+        raise SystemExit(f"small bf16 train step: the card disagrees with "
+                         f"the CPU in {bad}")
+    return dict(loss_rel=loss, grads=got, fp32_spread=spread)
+
+
+def w48_check():
+    """HRNet-w48 (the w48 ``extra`` of the port's mmcv converter: 48 / 96
+    / 192 / 384 channels) from the same seeded weights on the card and on
+    the CPU: at one 640x960 image the forward in evaluation and a training
+    forward (batch statistics), outputs and running statistics card vs
+    CPU within TOL_W48_OUT of their max; at W48_GRAD_HW the backward of a
+    fixed linear loss of the four outputs on the card, on the CPU and on
+    the CPU in float64: the card's worst relative L2 distance of a
+    gradient from float64 within TOL_W48_GRAD times the CPU fp32's (plus
+    1e-4), and, as the control that limit must fail, the card's with TF32
+    convolutions. Then the card's forward and a training step at 640x960
+    are timed, with the peak memory."""
+    import copy
+
+    import torch
+    from lidarseg3d_torch.models import build_img_backbone
+    from lidarseg3d_torch.tools.convert_hrnet_checkpoint import HRNET_EXTRA
+
+    torch.manual_seed(48)
+    cpu = build_img_backbone(dict(type="HRNet",
+                                  extra=HRNET_EXTRA[48])).cpu()
+    card = copy.deepcopy(cpu).to(DEV)
+    nparam = sum(p.numel() for p in cpu.parameters())
+    gen = torch.Generator().manual_seed(48)
+    x = torch.rand(1, 3, *W48_HW, generator=gen) * 4 - 2
+    res = {"parameters_m": nparam / 1e6}
+
+    def rel_max(got, want):
+        return max(float((g.double().cpu() - w.double()).abs().max()
+                         / w.double().abs().max().clamp(min=1e-30))
+                   for g, w in zip(got, want))
+
+    def stats(m):
+        return [v for k, v in m.state_dict().items() if "running" in k]
+
+    with torch.no_grad():
+        err = rel_max(card.eval()(x.to(DEV)), cpu.eval()(x))
+        s0 = [v.clone() for v in stats(cpu)]
+        terr = rel_max(card.train()(x.to(DEV)), cpu.train()(x))
+        serr = rel_max(stats(card), stats(cpu))
+    for m in (card, cpu):  # back to the seeded statistics
+        for v, v0 in zip(stats(m), s0):
+            v.copy_(v0)
+
+    xg = torch.rand(1, 3, *W48_GRAD_HW, generator=gen) * 4 - 2
+    ws = None
+
+    def grads(m, dev, dt):
+        nonlocal ws
+        m = copy.deepcopy(m).to(dev, dt).train()
+        outs = m(xg.to(dev, dt))
+        if ws is None:
+            ws = [torch.randn(o.shape, generator=gen) for o in outs]
+        sum((o * w.to(dev, dt)).sum() for o, w in zip(outs, ws)).backward()
+        return {k: p.grad.double().cpu() for k, p in m.named_parameters()}
+
+    g64 = grads(cpu, "cpu", torch.float64)
+    sides = {"card": grads(card, DEV, torch.float32),
+             "cpu": grads(cpu, "cpu", torch.float32)}
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        sides["card tf32"] = grads(card, DEV, torch.float32)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    dist = {key: max(float((g[k] - w).norm() / w.norm())
+                     for k, w in g64.items())
+            for key, g in sides.items()}
+    limit = TOL_W48_GRAD * dist["cpu"] + 1e-4
+
+    # timing at 640x960: the forward, then a second training step (cuDNN
+    # has chosen its algorithms in the first)
+    with torch.no_grad():
+        card.eval()(x.to(DEV))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card(x.to(DEV))
+        torch.cuda.synchronize()
+        res["forward_ms"] = (time.perf_counter() - t0) * 1e3
+
+    def train_step():
+        outs = card.train()(x.to(DEV))
+        sum(o.float().mean() for o in outs).backward()
+
+    train_step()
+    card.zero_grad()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train_step()
+    torch.cuda.synchronize()
+    res["train_step_ms"] = (time.perf_counter() - t0) * 1e3
+    res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res.update(eval_out_err=err, train_out_err=terr, stats_err=serr,
+               grads_vs_float64=dist, grads_limit=limit)
+    log(f"  HRNet-w48 ({nparam / 1e6:.2f} M parameters) at "
+        f"{W48_HW[1]}x{W48_HW[0]}, card vs CPU: eval outputs {err:.2e}, "
+        f"training outputs {terr:.2e}, running statistics {serr:.2e} of "
+        f"their max (limit {TOL_W48_OUT}); gradients at "
+        f"{W48_GRAD_HW[1]}x{W48_GRAD_HW[0]} against float64 (worst "
+        f"relative L2 of a tensor): card {dist['card']:.3e}, CPU fp32 "
+        f"{dist['cpu']:.3e} (limit {TOL_W48_GRAD}x the CPU's + 1e-4 = "
+        f"{limit:.3e}); control, the card with TF32 convolutions "
+        f"{dist['card tf32']:.3e} ("
+        f"{'fails' if dist['card tf32'] > limit else 'passes'} the limit); "
+        f"card: forward {res['forward_ms']:.2f} ms, a training "
+        f"forward+backward {res['train_step_ms']:.2f} ms, peak "
+        f"{res['peak_memory_gib']:.2f} GiB")
+    if max(err, terr, serr) > TOL_W48_OUT or not dist["card"] <= limit:
+        raise SystemExit("HRNet-w48: the card disagrees with the CPU")
+    return res
+
+
+def run_bf16_w48():
+    """Phase 3q: 3c's full-width step with the bf16 image branch (its
+    launches, every parameter moved, remat on too), the small bf16 step
+    card vs CPU, and HRNet-w48."""
+    t0 = time.perf_counter()
+    run = run_train(TRAIN_BF16)
+    t1 = time.perf_counter()
+    run["result"]["small_card_vs_cpu"] = small_bf16_check()
+    t2 = time.perf_counter()
+    w48 = w48_check()
+    log(f"  seconds: the bf16 step {t1 - t0:.1f}, the small bf16 check "
+        f"{t2 - t1:.1f}, HRNet-w48 {time.perf_counter() - t2:.1f}")
+    return {"train_bf16": run, "w48": dict(
+        result=w48, launches={k: 0 for k in wrappers()})}
+
+
 def remat_steps(t, exs, ishape, peak_off):
     """The same training step with every remat option on (HRNet's
     with_cp, ACT_REMAT of the UNet's residual stacks and of the SFFM
@@ -2278,10 +2604,11 @@ def jpeg_read_ms(dataset):
     from lidarseg3d_torch.datasets.pipelines import jpeg_read as jr
 
     info = dataset.load_infos(0)
-    path = info["cam_paths"][info["cam"]["chan"][0]]
+    cam = (info["cam"].get("chan") or info["cam"]["names"])[0]
+    path = info["cam_paths"][cam]
     with open(path, "rb") as f:
         data = f.read()
-    jr.decode_jpeg_bgr(data)
+    hw = jr.decode_jpeg_bgr(data).shape[:2]
     real, scans = jr._Frame.scan, []
 
     def timed(self, seg, buf):
@@ -2299,7 +2626,7 @@ def jpeg_read_ms(dataset):
     finally:
         jr._Frame.scan = real
     return dict(image_ms=total * 1e3, huffman_ms=sum(scans) / 5 * 1e3,
-                bytes=len(data))
+                bytes=len(data), hw=list(hw))
 
 
 def dataset_in(cfg, split, tmp, tta=False):
@@ -2339,6 +2666,57 @@ def write_nusc_tree(tmp, cfg, spec):
     create_data.main(["semanticnusc", "--root", root, *flag])
     create_data.main(["semanticnusc", "--root", root, "--dry-data", *flag])
     return secs
+
+
+_WAYMO_ROOT = []
+
+
+def link_waymo_tree(tmp, cfg):
+    """The seeded SemanticWaymo tree (WAYMO_TREE; full published sizes:
+    five JPEG cameras a frame) at the config's data_root under ``tmp``: a
+    link to one tree written on first use and removed when the script
+    ends; -> the seconds this call spent writing it."""
+    import atexit
+    import shutil
+    import tempfile
+
+    from lidarseg3d_torch.synthetic import write_semanticwaymo_tree
+
+    t0 = time.perf_counter()
+    if not _WAYMO_ROOT:
+        root = tempfile.mkdtemp(prefix="waymo_tree_")
+        atexit.register(shutil.rmtree, root, ignore_errors=True)
+        write_semanticwaymo_tree(root, splits=("training", "validation"),
+                                 frames=WAYMO_TREE["frames"],
+                                 seed=WAYMO_TREE["seed"])
+        _WAYMO_ROOT.append(root)
+    link = os.path.join(tmp, cfg.data_root)
+    os.makedirs(os.path.dirname(link), exist_ok=True)
+    os.symlink(_WAYMO_ROOT[0], link)
+    return time.perf_counter() - t0
+
+
+def waymo_frame_points(ds, token):
+    """The point count of a SemanticWaymo frame (all its lidars)."""
+    import pickle
+
+    with open(ds._path(ds._by_token[token]), "rb") as f:
+        return len(pickle.load(f)["lidars"]["points_xyz"])
+
+
+def waymo_tree_text(split):
+    import pickle
+
+    path = os.path.join(_WAYMO_ROOT[0], f"infos_{split}_01sweeps_segdet.pkl")
+    with open(path, "rb") as f:
+        infos = pickle.load(f)
+    n = []
+    for info in infos:
+        with open(info["path"], "rb") as f:
+            n.append(len(pickle.load(f)["lidars"]["points_xyz"]))
+    return (f"{len(infos)} {split} frames of {min(n)}-{max(n)} points (a "
+            "TOP lidar of 64 x 2650 with second returns, four short-range "
+            "lidars) and five JPEGs (3 x 1920x1280, 2 x 1920x886)")
 
 
 def eval_card_vs_cpu(tmp):
@@ -2397,11 +2775,12 @@ def eval_card_vs_cpu(tmp):
 def write_frame0(e, cfg, tmp, one):
     """Frame 0 of the eval tree alone, at its published size, for the
     entry point run in ``one``: SemanticKITTI writes the same first frame
-    again (the same seed draws it), nuScenes an info file of frame 0's
-    info (its paths point into the tree under ``tmp``)."""
+    again (the same seed draws it), nuScenes and SemanticWaymo an info
+    file of frame 0's info (its paths point into the tree under
+    ``tmp``)."""
     import pickle
 
-    if "scenes" not in e:
+    if "scenes" not in e and not e.get("waymo"):
         from lidarseg3d_torch.synthetic import write_semantickitti_tree
 
         write_semantickitti_tree(os.path.join(one, cfg.data_root), ("08",),
@@ -2496,7 +2875,7 @@ def run_eval_path(e=EVAL, phase="3d"):
     cfg_path = os.path.join(here, e["config"])
     cfg = Config.fromfile(cfg_path)
     cap, ishape = caps(cfg), tool.input_shape_of(cfg)
-    nusc = "scenes" in e
+    nusc, waymo = "scenes" in e, bool(e.get("waymo"))
     tta = bool(e.get("tta"))
     args = ["--tta"] if tta else []
     rows = int(cfg.tta_cfg.num_tta_tranforms) if tta else 1
@@ -2508,7 +2887,10 @@ def run_eval_path(e=EVAL, phase="3d"):
     try:
         # the config's paths are relative: the tree goes under tmp and the
         # entry point runs with tmp as its working directory
-        if nusc:
+        if waymo:
+            secs = link_waymo_tree(tmp, cfg)
+            what = waymo_tree_text("validation")
+        elif nusc:
             secs = write_nusc_tree(tmp, cfg, e)
             what = (f"{len(e['scenes'])} val scene(s) of {e['samples']} "
                     f"key frames, {e['points'][0]}-{e['points'][1]} points "
@@ -2574,6 +2956,11 @@ def run_eval_path(e=EVAL, phase="3d"):
         for token, pred in out["detections"].items():
             labels = pred["pred_point_sem_labels"]
             n = len(ds.get_anno_for_eval(token)["point_sem_labels"])
+            if waymo:  # every point predicted, the TOP lidar's labelled
+                n_seg, n = n, waymo_frame_points(ds, token)
+                if n_seg >= n:
+                    raise SystemExit(f"{token}: {n_seg} labelled points "
+                                     f"of {n}")
             if labels.shape != (n,) or labels.min() < 0 \
                     or labels.max() >= e["ncls"]:
                 raise SystemExit(f"{token}: {labels.shape} labels in "
@@ -2630,9 +3017,14 @@ def run_eval_path(e=EVAL, phase="3d"):
                                num_workers=2) as loader:
                 _, _, hist = ev.run_eval_device_hist(model, state, loader,
                                                      ishape, ds, e["ncls"])
-            want = sum(fast_hist(p["pred_point_sem_labels"],
-                                 ds.get_anno_for_eval(t)["point_sem_labels"],
-                                 e["ncls"])
+            # (a Waymo frame's labels, its TOP lidar's, padded with the
+            # ignored 0 to its points, as the device side pads them)
+            def padded_gt(t, n):
+                gt = ds.get_anno_for_eval(t)["point_sem_labels"]
+                return np.pad(gt, (0, n - len(gt)))
+
+            want = sum(fast_hist(p["pred_point_sem_labels"], padded_gt(
+                t, len(p["pred_point_sem_labels"])), e["ncls"])
                        for t, p in out["detections"].items())
             if not np.array_equal(hist, want):
                 raise SystemExit("run_eval_device_hist's histogram differs "
@@ -2645,9 +3037,11 @@ def run_eval_path(e=EVAL, phase="3d"):
         pipe = host_pipeline_ms(dataset_in(cfg, "val", tmp, tta), cap)
         log("  host pipeline ms per frame (one thread): " + ", ".join(
             f"{k} {v:.2f}" for k, v in pipe.items()))
-        jpeg = jpeg_read_ms(ds) if nusc and e.get("cams", True) else None
+        jpeg = jpeg_read_ms(ds) if (nusc or waymo) and e.get(
+            "cams", True) else None
         if jpeg:
-            log(f"  read_jpeg_bgr of one 1600x900 camera ({jpeg['bytes']} "
+            log(f"  read_jpeg_bgr of one {jpeg['hw'][1]}x{jpeg['hw'][0]} "
+                f"camera ({jpeg['bytes']} "
                 f"bytes): {jpeg['image_ms']:.2f} ms, of which the Huffman "
                 f"decoding (C) {jpeg['huffman_ms']:.2f} ms")
         frame0 = (published_frame_on_cpu(e, cfg_path, cfg, tmp, work,
@@ -2911,11 +3305,18 @@ def run_train_entry(t=TRAIN_ENTRY, e=EVAL, phase="3e"):
     from lidarseg3d_torch.utils.config import Config
 
     here = os.path.dirname(os.path.abspath(__file__))
-    nusc = "scenes" in t
+    nusc, waymo = "scenes" in t, bool(t.get("waymo"))
     tmp = tempfile.mkdtemp(prefix=f"train_{phase}_")
     try:
         base = Config.fromfile(os.path.join(here, e["config"]))
-        if nusc:
+        if waymo:
+            cfg_path = os.path.join(here, e["config"])
+            if t.get("loader"):
+                cfg_path = with_loader(cfg_path, os.path.join(tmp, "cfg.py"),
+                                       t["loader"])
+            secs = link_waymo_tree(tmp, base)
+            what = waymo_tree_text("training")
+        elif nusc:
             cfg_path = os.path.join(here, e["config"])
             if t.get("loader"):
                 cfg_path = with_loader(cfg_path, os.path.join(tmp, "cfg.py"),
@@ -2937,6 +3338,9 @@ def run_train_entry(t=TRAIN_ENTRY, e=EVAL, phase="3e"):
             cfg_path = write_eval_config(os.path.join(tmp, "train.py"),
                                          os.path.join(here, e["config"]),
                                          data_root)
+            if t.get("loader"):
+                cfg_path = with_loader(cfg_path, os.path.join(
+                    tmp, "train_loader.py"), t["loader"])
             H, W = t["image_hw"]
             what = (f"sequences {seqs}, {t['frames']} frame each of "
                     f"{t['points'][0]}-{t['points'][1]} points and {W}x{H} "
@@ -2958,7 +3362,7 @@ def run_train_entry(t=TRAIN_ENTRY, e=EVAL, phase="3e"):
                f"converted from a seeded mmcv HRNet-w18 state_dict "
                f"({len(hrnet['mmcv'])} tensors) by the port's converter in "
                f"{hrnet['seconds']:.2f} s"))
-        if nusc and mode != t.get("loader", "shm"):
+        if (nusc or waymo) and mode != t.get("loader", "shm"):
             raise SystemExit(f"phase {phase}: the loader would run in "
                              f"{mode} mode, not shm ({os.cpu_count()} CPUs)")
         work = os.path.join(tmp, "work")
@@ -3021,10 +3425,14 @@ def run_train_entry(t=TRAIN_ENTRY, e=EVAL, phase="3e"):
             check = Check()
             out = None
             if t.get("resume", True):
-                out = tool.main(args + ["--resume_from", "--total_epochs",
-                                        str(t["epochs"] + 1)],
-                                hooks=[check, train_entry_hook(
-                                    ws, t["per_step"], record, phase)])
+                # the resume's subject is the state it loads: its loader
+                # runs threads (the first run drove the config's mode)
+                rcfg = cfg_path if mode == "thread" else with_loader(
+                    cfg_path, os.path.join(tmp, "resume.py"), "thread")
+                out = tool.main([rcfg] + args[1:] + [
+                    "--resume_from", "--total_epochs", str(t["epochs"] + 1)],
+                    hooks=[check, train_entry_hook(ws, t["per_step"], record,
+                                                   phase)])
         finally:
             os.chdir(cwd)
         if out is None:
@@ -3832,7 +4240,7 @@ def conv_kernel_sums(per_name):
 
 
 PHASES = ("3", "3b", "3c", "3d", "3e", "3f", "3g", "3h", "3i", "3j", "3k",
-          "3l", "3m", "3n", "4", "5")
+          "3l", "3m", "3n", "3o", "3p", "3q", "4", "5")
 
 
 def parse_args(argv):
@@ -3928,6 +4336,18 @@ def main(argv=None):
         ("3n", "multi-process training and evaluation (two ranks sharing "
          "the card over gloo; one NCCL rank from torchrun's variables)",
          lambda: {"ddp": run_ddp()}),
+        ("3o", "main path waymo-eval (published SemanticWaymo MSeg3D "
+         "config, then its lidar baseline)",
+         lambda: {"waymo_eval": run_eval_path(EVAL_WAYMO, "3o"),
+                  "waymo_base_eval": run_eval_path(EVAL_WAYMO_BASE, "3o")}),
+        ("3p", "main path waymo-train (both SemanticWaymo configs at B=2, "
+         "the pretrained HRNet imported)",
+         lambda: {"waymo_train": run_train_entry(TRAIN_WAYMO, EVAL_WAYMO,
+                                                 "3p"),
+                  "waymo_base_train": run_train_entry(
+                      TRAIN_WAYMO_BASE, EVAL_WAYMO_BASE, "3p")}),
+        ("3q", "bf16 image branch in training, and HRNet-w48",
+         run_bf16_w48),
     ]
     for ph, text, fn in steps:
         if ph in want:

@@ -4,9 +4,11 @@ stage and dataset it holds."""
 
 from .registry import DATASETS, PIPELINES  # noqa: F401
 from .builder import build_dataset  # noqa: F401
-from .pipelines import compose, loading, seg_preprocess  # noqa: F401
+from .pipelines import (compose, instance_aug, loading,  # noqa: F401
+                        seg_preprocess)
 from .semantickitti import dataset as _semkitti  # noqa: F401
 from .nuscenes import dataset as _nusc  # noqa: F401
+from .waymo import dataset as _waymo  # noqa: F401
 from .loader import (EpochSampler, SegDataLoader,  # noqa: F401
                      default_worker_mode)
 from .batching import collate_segnet, pad_batch_rows  # noqa: F401

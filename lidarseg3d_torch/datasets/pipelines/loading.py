@@ -15,12 +15,22 @@ for the key frame); each point gets its projection into the six cameras
 through ``ref_to_global``, ``cams_from_global`` and the intrinsics, in
 float64; the lidarseg file holds one uint8 raw id per key-frame point.
 
+SemanticWaymo: a frame is one pkl of the converter
+(datasets/waymo/dataset.py): ``points_xyz`` || ``points_feature`` gives
+[x, y, z, intensity, elongation] rows, ``points_cp`` each point's [cam_id,
+w, h] in that camera's own pixels as stored; with ``nsweeps > 1`` the
+earlier frames of the infos' ``sweeps`` are moved into the key frame by
+``p @ T[:3, :3].T + T[:3, 3]`` with a time-lag column, and their points
+get no camera (-100); the labels (the TOP lidar's returns) are padded
+with 0 up to the point count.
+
 Images are read by png.read_png_bgr (SemanticKITTI) and
-jpeg_read.read_jpeg_bgr (nuScenes), which give what cv2.imread gives. The
-image label maps are drawn as cv2.circle draws a filled circle
-(``circle_offsets``, ``splat_circles``). The Waymo branches are not
-ported yet and raise (ROADMAP A8).
+jpeg_read.read_jpeg_bgr (nuScenes by channel, Waymo by camera id), which
+give what cv2.imread gives. The image label maps are drawn as cv2.circle
+draws a filled circle (``circle_offsets``, ``splat_circles``).
 """
+
+import pickle
 
 import numpy as np
 
@@ -50,13 +60,20 @@ def select_points_in_frustum(pts_2d, x1, y1, x2, y2):
             & (pts_2d[:, 1] >= y1) & (pts_2d[:, 1] < y2))
 
 
-PORTED = ("SemanticKITTIDataset", "SemanticNuscDataset")
+PORTED = ("SemanticKITTIDataset", "SemanticNuscDataset",
+          "SemanticWaymoDataset")
 
 
 def _not_ported(kind):
     return NotImplementedError(
-        f"{kind} is not ported to lidarseg3d_torch yet (only "
-        f"{' and '.join(PORTED)} are; ROADMAP A8)")
+        f"{kind}: lidarseg3d_torch loads {', '.join(PORTED)} (the "
+        "detection datasets: ROADMAP A9)")
+
+
+def _waymo_points(obj):
+    lid = obj["lidars"]
+    return np.concatenate([lid["points_xyz"], lid["points_feature"]],
+                          axis=1).astype(np.float32)
 
 
 def circle_offsets(radius):
@@ -153,6 +170,30 @@ class LoadPointCloudFromFile:
             sample["points"] = points
             if self.use_img:
                 sample["points_cp"] = self._nusc_points_cp(points, info)
+        elif self.type == "SemanticWaymoDataset":
+            with open(info["path"], "rb") as f:
+                obj = pickle.load(f)
+            sample["waymo_obj"] = obj
+            points = _waymo_points(obj)
+            if sample.get("nsweeps", 1) > 1 and info.get("sweeps"):
+                rows = [np.concatenate(
+                    [points, np.zeros((len(points), 1), np.float32)], 1)]
+                for sw in info["sweeps"][: sample["nsweeps"] - 1]:
+                    with open(sw["path"], "rb") as f:
+                        p = _waymo_points(pickle.load(f))
+                    T = np.asarray(sw["sweep_to_ref"], np.float32)
+                    p[:, :3] = p[:, :3] @ T[:3, :3].T + T[:3, 3]
+                    lag = np.full((len(p), 1), sw["time_lag"], np.float32)
+                    rows.append(np.concatenate([p, lag], 1))
+                points = np.concatenate(rows, 0)
+            sample["points"] = points
+            if self.use_img:
+                cp = obj["lidars"]["points_cp"].astype(np.float32)
+                if len(cp) < len(points):
+                    cp = np.concatenate([cp, np.full(
+                        (len(points) - len(cp), cp.shape[1]), -100.0,
+                        np.float32)])
+                sample["points_cp"] = cp
         else:
             raise _not_ported(self.type)
         return sample, info
@@ -186,7 +227,9 @@ class LoadPointCloudFromFile:
 @PIPELINES.register_module
 class LoadImageFromFile:
     """BGR reads of the frame's camera set: the image_2 PNG of a
-    SemanticKITTI scan, the JPEGs of a nuScenes sample by channel."""
+    SemanticKITTI scan, the JPEGs of a nuScenes sample by channel, those
+    of a Waymo frame by camera id (from the info's ``cam_paths``, else
+    the frame pkl's)."""
 
     def __init__(self, use_img=True, **kwargs):
         self.use_img = use_img
@@ -202,6 +245,10 @@ class LoadImageFromFile:
         elif sample["type"] == "SemanticNuscDataset":
             sample["images"] = [read_jpeg_bgr(info["cam_paths"][c])
                                 for c in info["cam"]["chan"]]
+        elif sample["type"] == "SemanticWaymoDataset":
+            paths = info.get("cam_paths") or sample["waymo_obj"]["cam_paths"]
+            sample["images"] = [read_jpeg_bgr(paths[c])
+                                for c in info["cam"]["names"]]
         else:
             raise _not_ported(sample["type"])
         return sample, info
@@ -211,7 +258,8 @@ class LoadImageFromFile:
 class LoadPointCloudAnnotations:
     """Per-point semantic (and, for SemanticKITTI, instance) labels of a
     scan; with several nuScenes sweeps only the key frame's points are
-    labelled, the others get 0."""
+    labelled, the others get 0; a Waymo frame's labels (its TOP lidar's
+    returns) are padded with 0 up to the point count."""
 
     def __init__(self, with_bbox=False, **kwargs):
         self.with_bbox = with_bbox
@@ -234,6 +282,15 @@ class LoadPointCloudAnnotations:
             if n > len(sem):
                 sem = np.concatenate([sem, np.zeros(n - len(sem), np.int32)])
             sample["annotations"] = {"point_sem_labels": sem,
+                                     "point_inst_labels": np.zeros(
+                                         n, np.int32)}
+        elif sample["type"] == "SemanticWaymoDataset":
+            sem = np.asarray(sample["waymo_obj"]["annotations"][
+                "point_sem_labels"], np.int32)
+            n = len(sample["points"])
+            if n > len(sem):
+                sem = np.concatenate([sem, np.zeros(n - len(sem), np.int32)])
+            sample["annotations"] = {"point_sem_labels": sem[:n],
                                      "point_inst_labels": np.zeros(
                                          n, np.int32)}
         else:

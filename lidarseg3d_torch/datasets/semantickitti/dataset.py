@@ -1,8 +1,9 @@
 """SemanticKITTI dataset (own copy of
 lidarseg3d_tpu/datasets/semantickitti/dataset.py): sequence scanning,
 pipeline-driven samples, the confusion-histogram mIoU evaluation and the
-test-split writer of .label files in the semantic-kitti-api layout. The
-panoptic instance library (``save_instance``) is not ported yet.
+test-split writer of .label files in the semantic-kitti-api layout, and
+the panoptic instance library (``save_instance``) that SegInstanceAug
+pastes from.
 """
 
 import os
@@ -96,6 +97,17 @@ class SemanticKITTIDataset:
         raw = np.fromfile(label_path, dtype=np.uint32).reshape(-1)
         sem = meta.REMAP_LUT[(raw & 0xFFFF).astype(np.int64)]
         return {"point_sem_labels": sem.astype(np.uint8)}
+
+    def save_instance(self, out_dir, min_points=10):
+        """Write the thing-class instances of every scan and the library
+        ``out_dir/instance_path.pkl`` (pipelines/instance_aug.py
+        ``save_instance``); -> its path."""
+        from ..pipelines.instance_aug import save_instance
+
+        thing_list = [c for c, is_thing in meta.THING_CLASS.items()
+                      if is_thing]
+        return save_instance(self.files, meta.REMAP_LUT, thing_list,
+                             out_dir, min_points=min_points)
 
     def evaluation(self, detections, output_dir=None, testset=False,
                    **kwargs):

@@ -1,6 +1,5 @@
 """Fail-fast validation of an externally mounted raw dataset tree (own
-copy of the SemanticKITTI and nuScenes checks of
-lidarseg3d_tpu/datasets/validate.py).
+copy of lidarseg3d_tpu/datasets/validate.py).
 
 ``python -m lidarseg3d_torch.tools.create_data <dataset> --root R
 --dry-data`` runs these checks and writes nothing, so a mis-mounted tree
@@ -15,6 +14,8 @@ Checks per dataset:
   ``lidarseg/<version>/*_lidarseg.bin`` uint8 labels, one per point of
   the matching ``samples/LIDAR_TOP/*.pcd.bin`` scan (float32 5-column
   rows, size % 20 == 0); raw category ids < 32.
+- semanticwaymo: ``<root>/<split>/*.tfrecord`` segments present and
+  non-empty (the converter's input, waymo/converter.py).
 
 Each function raises DataTreeError with an actionable message at the
 first hard failure and returns a summary dict on success.
@@ -168,3 +169,18 @@ def validate_semanticnusc(root, version="v1.0-trainval", max_frames=8):
         checked += 1
     return {"dataset": "semanticnusc", "version": version,
             "lidarseg_records": len(lidarseg), "checked": checked}
+
+
+def validate_semanticwaymo(root, split="training"):
+    sdir = osp.join(root, split)
+    if not osp.isdir(sdir):
+        _fail(f"{sdir!r} missing — expected <root>/{split}/*.tfrecord "
+              "(converter input, waymo/converter.py)")
+    recs = [f for f in os.listdir(sdir) if "tfrecord" in f]
+    if not recs:
+        _fail(f"no *.tfrecord files under {sdir!r}")
+    empty = [f for f in recs if osp.getsize(osp.join(sdir, f)) == 0]
+    if empty:
+        _fail(f"empty tfrecords under {sdir!r}: {empty[:4]}")
+    return {"dataset": "semanticwaymo", "split": split,
+            "tfrecords": len(recs)}

@@ -8,8 +8,8 @@ from .registry import (  # noqa: F401
 # registration
 from .readers import dynamic_vfe, voxel_encoders  # noqa: F401,E402
 from .backbones import cylinder3d, polarnet_unet, unet_scn  # noqa: F401,E402
-from .img_backbones import hrnet  # noqa: F401,E402
-from .img_heads import fcn_mseg3d_head  # noqa: F401,E402
+from .img_backbones import hrnet, resnet  # noqa: F401,E402
+from .img_heads import fcn_head, fcn_mseg3d_head, sc_conv  # noqa: F401,E402
 from .point_heads import (  # noqa: F401,E402
     batchloss_head, mseg3d_head, polarnet_head)
 from .segmentors import seg_mseg3d, seg_net, seg_polarnet  # noqa: F401,E402

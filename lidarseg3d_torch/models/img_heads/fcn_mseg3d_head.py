@@ -1,7 +1,8 @@
 """FCN decode head of MSeg3D's camera branch (PyTorch port of
 lidarseg3d_tpu/models/img_heads/fcn_mseg3d_head.py:33 FCNMSeg3DHead).
 
-Resize-concat of the HRNet pyramid, num_convs 3x3 ConvBNReLUs, a 1x1
+Resize-concat of the HRNet pyramid, num_convs 3x3 ConvBNReLUs (with
+``use_sc_conv``, SCBottlenecks after the first: sc_conv.py), a 1x1
 classifier, and the camera semantic embeddings. Works in NCHW and returns
 the JAX package's NHWC layout. With ``compute_dtype`` ("bfloat16") the
 inputs are cast and the convs run in that type; the three outputs are
@@ -17,6 +18,7 @@ from ...ops.resize import resize_bilinear
 from ..img_backbones.hrnet import ConvBNReLU, conv_as_input
 from ..layers import Scopes, add
 from ..registry import IMG_HEADS
+from .sc_conv import SCBottleneck
 
 
 def camera_semantic_embeddings(feats, logits, batch_size):
@@ -39,10 +41,10 @@ class FCNMSeg3DHead(nn.Module):
                  norm_cfg=None, use_sc_conv=False, conv_seg_kernel=1,
                  compute_dtype=None):
         super().__init__()
-        if use_sc_conv or input_transform != "resize_concat":
+        if input_transform != "resize_concat":
             raise NotImplementedError(
-                "the port has the resize-concat FCN head only (use_sc_conv "
-                "and the other input transforms: ROADMAP A9)")
+                "FCNMSeg3DHead resize-concats its inputs (the JAX package's "
+                "head has no other input transform)")
         self.compute_dtype = (None if compute_dtype is None
                               else getattr(torch, compute_dtype))
         self.ignore_index = ignore_index
@@ -53,22 +55,24 @@ class FCNMSeg3DHead(nn.Module):
         cin = sum(in_channels[i] for i in self.in_index)
         self.convs = []
         c = cin
-        for _ in range(num_convs):
-            self.convs.append(add(self, s, ConvBNReLU(c, channels,
-                                                      kernel=kernel_size)))
+        for i in range(num_convs):
+            self.convs.append(add(self, s, SCBottleneck(c, channels)
+                                  if use_sc_conv and i > 0 else
+                                  ConvBNReLU(c, channels,
+                                             kernel=kernel_size)))
             c = channels
         self.concat = []
         if concat_input:
             self.concat.append(add(self, s, ConvBNReLU(
-                cin + channels, channels, kernel=kernel_size)))
-        self.Conv_0 = nn.Conv2d(channels, num_classes, conv_seg_kernel,
+                cin + c, channels, kernel=kernel_size)))
+            c = channels
+        self.Conv_0 = nn.Conv2d(c, num_classes, conv_seg_kernel,
                                 padding=conv_seg_kernel // 2)
 
-    def forward(self, inputs, batch_size):
-        """inputs: list of NCHW HRNet maps [B*ncam, C_i, h_i, w_i].
-        Returns image_features [B*ncam, h, w, channels], image_logits
-        [B*ncam, h, w, ncls] (NHWC) and camera_semantic_embeddings
-        [B, ncls, channels]."""
+    def decode(self, inputs, generator=None):
+        """The decode body: resize-concat, the conv stack, the concat of
+        the input, ``dropout`` (none here), the classifier. -> features
+        and logits, NHWC, fp32 (float64 for a float64 input)."""
         if self.compute_dtype is not None:
             inputs = [x.to(self.compute_dtype) for x in inputs]
         tgt = inputs[self.in_index[0]]
@@ -80,10 +84,21 @@ class FCNMSeg3DHead(nn.Module):
             feats = m(feats)
         if self.concat:
             feats = self.concat[0](torch.cat([x, feats], dim=1))
+        feats = self.dropout(feats, generator)
         logits = conv_as_input(self.Conv_0, feats)
         out_t = torch.promote_types(feats.dtype, torch.float32)
-        feats = feats.permute(0, 2, 3, 1).to(out_t).contiguous()
-        logits = logits.permute(0, 2, 3, 1).to(out_t).contiguous()
+        return (feats.permute(0, 2, 3, 1).to(out_t).contiguous(),
+                logits.permute(0, 2, 3, 1).to(out_t).contiguous())
+
+    def dropout(self, feats, generator):
+        return feats
+
+    def forward(self, inputs, batch_size):
+        """inputs: list of NCHW HRNet maps [B*ncam, C_i, h_i, w_i].
+        Returns image_features [B*ncam, h, w, channels], image_logits
+        [B*ncam, h, w, ncls] (NHWC) and camera_semantic_embeddings
+        [B, ncls, channels]."""
+        feats, logits = self.decode(inputs)
         return {
             "image_features": feats,
             "image_logits": logits,

@@ -18,11 +18,14 @@ and training entry points; ``write_mini_segnet_config`` cuts a published
 SegNet config (SDSeg3D, the MSeg3D lidar-only baselines) to a mini model
 over such a tree, ``write_mini_polar_config`` a published SegPolarNet
 config (Cylinder3D, its _v2p variant, PolarNet) over a nuScenes tree.
+``write_semanticwaymo_tree`` writes converted SemanticWaymo frames (the
+TOP and short-range lidars, five cameras) and their infos.
 ``segnet_model_cfg`` is SDSeg3D's model at its published widths.
 """
 
 import json
 import os
+import pickle
 
 import numpy as np
 import torch
@@ -30,7 +33,7 @@ import torch
 from .core.voxelize import VoxelGenerator, encode_compact_value_labels
 from .datasets.batching import collate_segnet
 from .datasets.nuscenes.metadata import CAM_CHANS
-from .datasets.pipelines.jpeg_read import write_jpeg_bgr
+from .datasets.pipelines.jpeg_read import encode_jpeg_bgr, write_jpeg_bgr
 from .datasets.pipelines.png import write_png_bgr
 
 PCR = (-25.6, -25.6, -4.0, 25.6, 25.6, 2.0)
@@ -478,6 +481,210 @@ def write_semnusc_tree(root, scenes=("scene-0003",), samples=2,
             json.dump(rows, f)
 
 
+# Waymo's rig: the TOP lidar (64 beams from +2.4 to -17.6 degrees, 2650
+# columns, 75 m), the four short-range lidars (mount, yaw; 20 m), and the
+# five cameras (name id: mount, yaw, published image size W x H); vehicle
+# frame x forward, y left, z up from the ground
+WAYMO_TOP = dict(height=2.18, rows=64, cols=2650, max_range=75.0,
+                 elevation=np.linspace(2.4, -17.6, 64))
+WAYMO_SHORT = {"FRONT": ((4.07, 0.0, 0.69), 0.0),
+               "SIDE_LEFT": ((3.25, 1.02, 0.98), 90.0),
+               "SIDE_RIGHT": ((3.25, -1.02, 0.98), -90.0),
+               "REAR": ((-1.15, 0.0, 0.47), 180.0)}
+WAYMO_CAMS = {"1": ((1.54, -0.02, 2.12), 0.0, (1920, 1280)),
+              "2": ((1.50, 0.09, 2.12), 45.0, (1920, 1280)),
+              "3": ((1.50, -0.11, 2.12), -45.0, (1920, 1280)),
+              "4": ((1.43, 0.10, 2.12), 90.0, (1920, 886)),
+              "5": ((1.43, -0.12, 2.12), -90.0, (1920, 886))}
+WAYMO_FOCAL = 2055.0  # pixels at 1920 columns
+# Waymo seg classes: the ground, and what stands on it (0 = undefined)
+WAYMO_GROUND_IDS = (17, 18, 19, 20, 21, 22)
+WAYMO_STRUCTURE_IDS = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14,
+                       15, 16)
+
+
+def _waymo_hits(rng, origin, az, el, walls, max_range):
+    """Distances, hit mask and labels of rays from ``origin`` (x, y, z)
+    at azimuths ``az`` and elevations ``el`` (radians): each ray ends on
+    the ground (z = 0) or, before it, on the wall of its azimuth sector
+    (``walls``: distance, height, ground id, wall id per sector, around
+    the vehicle's origin), within ``max_range``."""
+    dist, height, gid, wid = walls
+    sectors = len(dist)
+    sec = ((az + np.pi) / (2 * np.pi) * sectors).astype(np.int64) % sectors
+    with np.errstate(divide="ignore"):
+        d_ground = np.where(el < 0, origin[2] / np.tan(-el), np.inf)
+    d_wall = np.maximum(dist[sec] - np.hypot(origin[0], origin[1]), 0.5)
+    z_wall = origin[2] + d_wall * np.tan(el)
+    on_ground = d_ground < d_wall
+    d = np.where(on_ground, d_ground, d_wall)
+    hit = (d < max_range) & (on_ground | (z_wall < height[sec]))
+    lab = np.where(on_ground, gid[sec], wid[sec])
+    # rough surfaces: grass, kerbs and foliage scatter the returns
+    return d + rng.normal(0, 0.15, d.shape), hit, lab
+
+
+def _waymo_points_cp(xyz, cam_hw):
+    """[cam_id, w, h] of each point in the first of the five cameras that
+    sees it (in that camera's own pixels, the image ``cam_hw[cam]``
+    (W, H)), -100 where none does."""
+    cp = np.full((len(xyz), 3), -100.0, np.float32)
+    free = np.ones(len(xyz), bool)
+    for cam, (pos, yaw, _) in WAYMO_CAMS.items():
+        W, H = cam_hw[cam]
+        f = WAYMO_FOCAL * W / 1920.0
+        a = np.deg2rad(yaw)
+        p = xyz - np.asarray(pos)
+        fwd = p[:, 0] * np.cos(a) + p[:, 1] * np.sin(a)
+        right = p[:, 0] * np.sin(a) - p[:, 1] * np.cos(a)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            u = f * right / fwd + W / 2.0
+            v = f * -p[:, 2] / fwd + H / 2.0
+        sees = free & (fwd > 0.1) & (u >= 0) & (u < W) & (v >= 0) & (v < H)
+        cp[sees] = np.stack([np.full(sees.sum(), float(cam)), u[sees],
+                             v[sees]], 1)
+        free &= ~sees
+    return cp
+
+
+def _waymo_frame(rng, second_return, short_points, cam_hw, cols,
+                 max_range):
+    """One converted frame's arrays: the TOP lidar's first returns, its
+    second returns, then the short-range lidars' returns."""
+    top = dict(WAYMO_TOP, cols=cols, max_range=max_range)
+    sectors = 360
+    walls = (rng.uniform(0.2, 0.99, sectors) * max_range,
+             rng.uniform(2.0, 25.0, sectors),
+             rng.choice(WAYMO_GROUND_IDS, sectors),
+             rng.choice(WAYMO_STRUCTURE_IDS, sectors))
+    rows, cols = np.meshgrid(np.arange(top["rows"]), np.arange(top["cols"]),
+                             indexing="ij")
+    az = np.pi - 2 * np.pi * (cols + rng.uniform(0, 1, cols.shape)) \
+        / top["cols"]
+    el = np.deg2rad(top["elevation"][rows] + rng.normal(0, 0.02, rows.shape))
+    origin = (0.0, 0.0, top["height"])
+    d, hit, lab = _waymo_hits(rng, origin, az, el, walls, top["max_range"])
+
+    def cloud(d, az, el, origin):
+        return np.stack([origin[0] + d * np.cos(el) * np.cos(az),
+                         origin[1] + d * np.cos(el) * np.sin(az),
+                         origin[2] + d * np.sin(el)], -1)
+
+    # a second return behind a share of the hits (foliage, edges)
+    second = hit & (rng.random(hit.shape) < second_return)
+    d2 = d + rng.uniform(0.3, 3.0, d.shape)
+    second &= d2 < top["max_range"]
+    parts = []
+    for m, dd in ((hit, d), (second, d2)):
+        parts.append(dict(xyz=cloud(dd[m], az[m], el[m], origin),
+                          lab=lab[m], ri=np.stack([cols[m], rows[m]], -1)))
+    n_short = short_points // len(WAYMO_SHORT)
+    short = []
+    for pos, yaw in WAYMO_SHORT.values():
+        a = np.deg2rad(yaw) + rng.uniform(-1.4, 1.4, n_short)
+        e = np.deg2rad(rng.uniform(-60.0, 20.0, n_short))
+        dd, h, _ = _waymo_hits(rng, pos, a, e, walls,
+                               min(20.0, max_range))
+        short.append(cloud(dd[h], a[h], e[h], pos))
+    xyz = np.concatenate([parts[0]["xyz"], parts[1]["xyz"]] + short)
+    n = len(xyz)
+    feat = np.stack([rng.uniform(0, 1.0, n), rng.uniform(0, 0.5, n)], 1)
+    return dict(xyz=xyz.astype(np.float32), feat=feat.astype(np.float32),
+                cp=_waymo_points_cp(xyz, cam_hw),
+                labels=np.concatenate([parts[0]["lab"], parts[1]["lab"]]
+                                      ).astype(np.uint8),
+                n1=len(parts[0]["xyz"]), n2=len(parts[1]["xyz"]),
+                ri1=parts[0]["ri"].astype(np.int32),
+                ri2=parts[1]["ri"].astype(np.int32))
+
+
+def write_semanticwaymo_tree(root, splits=("training", "validation"),
+                             frames=2, seed=0, cams=tuple(WAYMO_CAMS),
+                             cam_hw=None, second_return=0.08,
+                             short_points=6000, quality=95, nsweeps=1,
+                             top_cols=2650, max_range=75.0):
+    """Write a seeded SemanticWaymo tree under ``root`` in the converter's
+    layout (datasets/waymo/dataset.py): for each split in ``splits``,
+    ``frames`` frame pkls (an int, or a count per split) in
+    ``SPLIT_frames/`` of one driving context, 0.1 s apart, each with a
+    JPEG (``encode_jpeg_bgr`` at ``quality``) in ``SPLIT_images/`` for
+    each camera id in ``cams`` (a camera shows the same seeded image in
+    every frame of a split: the encoding takes most of a frame's writing
+    time), and the info pkl
+    ``infos_SPLIT_{nsweeps:02d}sweeps_segdet.pkl`` (each frame's
+    previous frame is its sweep). A frame is a TOP lidar of 64 rows x
+    ``top_cols`` columns (Waymo's 2650) within ``max_range`` m (75),
+    whose beams end on the ground or the wall of their azimuth sector,
+    with a second return behind a ``second_return`` share of the hits,
+    then about ``short_points`` returns of the four short-range lidars
+    within 20 m (or ``max_range``). The labels (23 classes) cover the
+    TOP lidar's returns only (``num_seg_points`` below the point count);
+    ``points_cp`` holds each point's [cam_id, w, h] in the first camera
+    that sees it, in that camera's own pixels. ``cam_hw`` maps a camera
+    id to its image size (W, H), the published sizes by default (three
+    at 1920x1280, the two side cameras at 1920x886). -> {split: info
+    path}."""
+    rng = np.random.default_rng(seed)
+    cam_hw = dict({c: v[2] for c, v in WAYMO_CAMS.items()}, **(cam_hw or {}))
+    out = {}
+    for split in splits:
+        frame_dir = os.path.join(root, f"{split}_frames")
+        image_dir = os.path.join(root, f"{split}_images")
+        os.makedirs(frame_dir, exist_ok=True)
+        os.makedirs(image_dir, exist_ok=True)
+        context = f"ctx{int(rng.integers(10**8)):08d}"
+        infos, jpegs = [], {}
+        for i in range(frames[split] if isinstance(frames, dict)
+                       else frames):
+            stamp = 1_500_000_000_000_000 + i * 100_000
+            token = f"{context}_{stamp}"
+            fr = _waymo_frame(rng, second_return, short_points, cam_hw,
+                              top_cols, max_range)
+            cam_paths = {}
+            for c in cams:
+                if c not in jpegs:  # a camera's image: one a split
+                    W, H = cam_hw[c]
+                    jpegs[c] = encode_jpeg_bgr(_kitti_image(rng, H, W),
+                                               quality)
+                cam_paths[c] = os.path.join(image_dir, f"{token}_cam{c}.jpg")
+                with open(cam_paths[c], "wb") as f:
+                    f.write(jpegs[c])
+            n_top = fr["n1"] + fr["n2"]
+            obj = {
+                "token": token, "timestamp": stamp / 1e6,
+                "veh_to_global": np.eye(4),
+                "lidars": {
+                    "points_xyz": fr["xyz"], "points_feature": fr["feat"],
+                    "points_cp": fr["cp"],
+                    "num_points_of_top_lidar": {"ri_return1": fr["n1"],
+                                                "ri_return2": fr["n2"]},
+                    "top_slices": {"ri1": [0, fr["n1"]],
+                                   "ri2": [fr["n1"], fr["n2"]]},
+                    "top_ri_indexing": {"ri1": fr["ri1"], "ri2": fr["ri2"]},
+                },
+                "annotations": {"point_sem_labels": fr["labels"],
+                                "num_seg_points": n_top},
+                "cam_paths": cam_paths,
+            }
+            path = os.path.join(frame_dir, f"{token}.pkl")
+            with open(path, "wb") as f:
+                pickle.dump(obj, f)
+            sweeps = []
+            if infos:  # the previous frame, 1 m behind along x
+                T = np.eye(4, dtype=np.float32)
+                T[0, 3] = -1.0
+                sweeps.append({"path": infos[-1]["path"], "sweep_to_ref": T,
+                               "time_lag": 0.1})
+            infos.append({"token": token, "path": path, "context": context,
+                          "timestamp": stamp / 1e6, "sweeps": sweeps,
+                          "cam_paths": cam_paths})
+        out[split] = os.path.join(
+            root, f"infos_{split}_{nsweeps:02d}sweeps_segdet.pkl")
+        with open(out[split], "wb") as f:
+            pickle.dump(infos, f)
+    return out
+
+
 def write_eval_config(path, config, data_root, work_dir=None):
     """Write to ``path`` a copy of the config file ``config`` whose data
     splits read the tree at ``data_root`` (as ``write_semantickitti_tree``
@@ -605,3 +812,70 @@ def write_mini_polar_config(path, config, data_root, work_dir="unused"):
     with open(path, "w") as f:
         f.write(text)
     return path
+
+
+# a published SemanticWaymo config (MSeg3D or its lidar baseline) cut to a
+# mini model (its pipelines, dataset, optimizer and schedule stay the
+# published ones): a 25.6 m grid at 0.4 m, capacity 2048 voxels / 4096
+# points, the five cameras resized to 96x64, a tiny HRNet (frozen_stages=3)
+# and head, UNetSCN3D r=1, B=2
+_MINI_WAYMO = """
+point_cloud_range = [-12.8, -12.8, -2.0, 12.8, 12.8, 4.0]
+voxel_size = [0.4, 0.4, 0.3]
+voxel_generator.update(range=point_cloud_range, voxel_size=voxel_size,
+                       max_voxel_num=[2000, 2000])
+capacity = dict(max_voxels=2048, max_points=4096)
+train_preprocessor["npoints"] = 4000
+model["backbone"].update(point_cloud_range=point_cloud_range,
+                         voxel_size=voxel_size)
+model["backbone"]["model_cfg"]["SCALING_RATIO"] = 1
+if model.get("img_backbone"):
+    model["img_backbone"].update(pretrained=None, extra=dict(
+        stage1=dict(num_modules=1, num_branches=1, block="BOTTLENECK",
+                    num_blocks=(1,), num_channels=(8,)),
+        stage2=dict(num_modules=1, num_branches=2, block="BASIC",
+                    num_blocks=(1, 1), num_channels=(4, 8)),
+        stage3=dict(num_modules=1, num_branches=3, block="BASIC",
+                    num_blocks=(1, 1, 1), num_channels=(4, 8, 16)),
+        stage4=dict(num_modules=1, num_branches=4, block="BASIC",
+                    num_blocks=(1, 1, 1, 1), num_channels=(4, 8, 16, 32))))
+    model["img_head"].update(in_channels=(4, 8, 16, 32), num_convs=1,
+                             channels=12)
+    model["point_head"]["model_cfg"].update(
+        VOXEL_IN_DIM=16, VOXEL_CLS_FC=[16], VOXEL_ALIGN_DIM=16,
+        IMAGE_IN_DIM=12, IMAGE_ALIGN_DIM=16, GEO_FUSED_DIM=16,
+        OUT_CLS_FC=[16], MIMIC_FC=[16],
+        SFPhase_CFG=dict(embeddings_proj_kernel_size=1, d_model=16,
+                         n_head=4, n_layer=2, n_ffn=32, drop_ratio=0,
+                         activation="relu", pre_norm=False))
+else:
+    model["point_head"]["model_cfg"].update(CONV_IN_DIM=16, CONV_CLS_FC=[16],
+                                            CONV_ALIGN_DIM=16,
+                                            OUT_CLS_FC=[16])
+for _split in ("train", "val", "test"):
+    data[_split].update(
+        root_path={root!r}, img_resized_shape=(96, 64),
+        info_path={root!r} + "/" + data[_split]["info_path"].rsplit("/")[-1])
+data.update(samples_per_gpu=2, workers_per_gpu=1)
+log_config = dict(interval=1)
+work_dir = {work!r}
+"""
+
+# the image sizes of a mini SemanticWaymo tree (W, H): the published
+# 3:2 and 2.17:1 aspect ratios at a tenth of the width
+MINI_WAYMO_CAMS = {"1": (192, 128), "2": (192, 128), "3": (192, 128),
+                   "4": (192, 89), "5": (192, 89)}
+
+
+def write_mini_waymo_config(path, config, data_root, work_dir="unused"):
+    """Write to ``path`` the published SemanticWaymo config file ``config``
+    cut to a mini model (``_MINI_WAYMO``) whose splits read the tree at
+    ``data_root`` (as ``write_semanticwaymo_tree`` writes it, small:
+    ``top_cols=24, max_range=12.0, short_points=400,
+    cam_hw=MINI_WAYMO_CAMS``). Returns ``path``."""
+    with open(config) as f:
+        text = f.read() + _MINI_WAYMO.format(root=data_root, work=work_dir)
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+

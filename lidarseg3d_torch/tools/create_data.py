@@ -3,8 +3,11 @@ tools/create_data.py).
 
     python -m lidarseg3d_torch.tools.create_data semanticnusc --root R
         [--version v1.0-trainval] [--nsweeps 1] [--cams] [--out_dir D]
+    python -m lidarseg3d_torch.tools.create_data semanticwaymo --root R
+        [--split training] [--nsweeps 1] [--out_dir D]
     python -m lidarseg3d_torch.tools.create_data {semanticnusc,
-        semantickitti} --root R --dry-data [--version V] [--cams]
+        semantickitti, semanticwaymo} --root R --dry-data [--version V]
+        [--cams] [--split S]
 
 ``semanticnusc`` writes ``infos_train_NNsweeps_segdet.pkl`` and
 ``infos_val_NNsweeps_segdet.pkl`` into ``--out_dir`` (the root by
@@ -12,8 +15,13 @@ default) through ``datasets.nuscenes.create_nuscenes_seg_infos``;
 ``--cams`` adds the six cameras' calibration and image paths (MSeg3D).
 ``--dry-data`` validates the tree (``datasets/validate.py``) and writes
 nothing; SemanticKITTI needs no info files, so it takes ``--dry-data``
-only (``--cams`` then checks its camera frames). The Waymo choices are not
-ported yet and raise.
+only (``--cams`` then checks its camera frames). ``semanticwaymo``
+converts ``R/SPLIT/*.tfrecord`` into frame pkls, camera JPEGs and
+``infos_SPLIT_NNsweeps_segdet.pkl`` through
+``datasets.waymo.converter.create_semanticwaymo_infos``, which needs
+tensorflow and waymo_open_dataset (it raises ImportError without them);
+its ``--dry-data`` checks the split's tfrecords. ``waymo_gt_database``
+(detection's ground-truth database) raises: detection is not ported.
 """
 
 import argparse
@@ -31,6 +39,8 @@ def parse_args(argv=None):
     p.add_argument("--out_dir", default=None)
     p.add_argument("--dry-data", action="store_true",
                    help="validate the mounted raw tree and exit")
+    p.add_argument("--split", default="training",
+                   help="the Waymo tfrecord split directory")
     return p.parse_args(argv)
 
 
@@ -38,10 +48,11 @@ def main(argv=None):
     """Run the tool; returns the summary of ``--dry-data`` or the paths
     of the info files written."""
     args = parse_args(argv)
-    if args.dataset in ("semanticwaymo", "waymo_gt_database"):
-        raise NotImplementedError(f"{args.dataset}: the Waymo datasets are "
-                                  "not ported to lidarseg3d_torch yet "
-                                  "(ROADMAP A8)")
+    if args.dataset == "waymo_gt_database":
+        raise NotImplementedError(
+            "waymo_gt_database: the Waymo detection ground-truth database "
+            "(det_pipeline.create_gt_database) is not ported to "
+            "lidarseg3d_torch (ROADMAP A9, detection legacy)")
     if args.dataset == "semantickitti" and not args.dry_data:
         raise SystemExit("semantickitti reads raw sequences (no info "
                          "files); only --dry-data applies")
@@ -51,11 +62,22 @@ def main(argv=None):
         if args.dataset == "semantickitti":
             rep = validate.validate_semantickitti(args.root,
                                                   use_img=args.cams)
+        elif args.dataset == "semanticwaymo":
+            rep = validate.validate_semanticwaymo(args.root,
+                                                  split=args.split)
         else:
             rep = validate.validate_semanticnusc(args.root,
                                                  version=args.version)
         print(f"dry-data OK: {rep}")
         return rep
+    if args.dataset == "semanticwaymo":
+        from ..datasets.waymo.converter import create_semanticwaymo_infos
+
+        path = create_semanticwaymo_infos(args.root, out_dir=args.out_dir,
+                                          nsweeps=args.nsweeps,
+                                          split=args.split)
+        print(f"wrote {path}")
+        return [path]
     from ..datasets.nuscenes.common import create_nuscenes_seg_infos
     from ..datasets.nuscenes.metadata import CAM_CHANS
 

@@ -53,6 +53,14 @@ class ConfigDict(dict):
         return unwrap(self)
 
 
+def _drop_config_modules():
+    """Forget every imported module of the repository's ``configs``
+    package."""
+    for name in [n for n in sys.modules
+                 if n == "configs" or n.startswith("configs.")]:
+        del sys.modules[name]
+
+
 class Config:
     def __init__(self, cfg_dict=None, filename=None, text=""):
         self._cfg_dict = ConfigDict(cfg_dict or {})
@@ -67,7 +75,12 @@ class Config:
         if not filename.endswith(".py"):
             raise ValueError("Only .py config files are supported")
         # import the config as a throwaway module (copied to a temp dir so
-        # the config directory itself is importable for sibling configs)
+        # the config directory itself is importable for sibling configs).
+        # A config that star-imports a base config (the lidar baselines)
+        # edits the base module's dicts in place, so the base is imported
+        # afresh for every load and dropped after it: a cached base would
+        # carry one config's edits into the next load of another
+        _drop_config_modules()
         with tempfile.TemporaryDirectory() as tmpdir:
             tmp_path = os.path.join(tmpdir, "_tmp_cfg_module.py")
             shutil.copyfile(filename, tmp_path)
@@ -81,6 +94,7 @@ class Config:
             finally:
                 sys.path.pop(0)
                 sys.modules.pop("_tmp_cfg_module", None)
+                _drop_config_modules()
             cfg_dict = {k: v for k, v in mod.__dict__.items()
                         if not k.startswith("__")}
         with open(filename) as f:
