@@ -191,6 +191,19 @@ exit):
      running statistics), and HRNet-w48 at one 640x960 image, forward and
      a training forward card vs CPU, its gradients at 384x256 against
      float64 (TF32 convolutions the control), a training step timed;
+  3r. det-nu: the published nuScenes CenterPoint VoxelNet configs
+     (configs/nusc/voxelnet/*: rotated, then circle NMS; 10 sweeps, grid
+     41x1024x1024) through tools.test on a seeded tree with boxes and
+     sweeps (BN calibrated on frame 0), the first trained through
+     tools.train at B=4 (2 epochs of one step and a resume that must equal
+     epoch_2); launches per frame and per step held, outputs checked (a
+     valid box a frame), a mini cut card vs CPU (selections exact, boxes
+     and scores within TOL_DET);
+  3s. det-wy: the Waymo 3x config the same way (its db_sampler on the
+     tree's gt database; B=4 = 4 x 150,000 conv rows), then the two-sweep
+     velocity config through tools.test;
+  3t. det-pp: the Waymo PointPillars config through both tools, which
+     launches no kernel of the port (held at 0);
   4. hold each kernel against its plain version on the card at each main
      path's shapes, from a real scan of that path: the rulebook conv in
      fp32 and bf16 (stage-1 subm, stage-1->2 strided, stage-4 subm; and as
@@ -230,7 +243,10 @@ exit):
      rows), the input conv 13->32, the stride-2 conv, the stage-1 dX and
      dW at B=2, every rulebook on both table kinds, the merge on the
      stage-1 and stage-2 KeyTables and the pack and lookup on the stage-3
-     RankTable. The
+     RankTable; from a frame of det-nu and a B=4 batch of det-wy-train,
+     the detection shapes (check_det_paths: the (3,1,1) / (2,1,1) extra
+     conv and its dX, stage 4's (0,1,1) conv, dX and dW at 600,000 rows,
+     all 12 rulebooks of the chain on both table kinds). The
      rulebook lookups: all
      10 rulebooks of each path's structures (semkitti, train at B=2,
      semnusc, eval, train entry at B=2, eval-nu, train-nu at B=3,
@@ -1000,21 +1016,23 @@ def check_rulebook_keys(report, name, table, s, spec, want=None):
     return got
 
 
-def check_path_rulebooks(report, path, books):
-    """Every rulebook of a path's structures through the fused kernel (a
-    RankTable) or the front end, merge and decode (a KeyTable) against the
-    plain versions and the path's own rulebook, timed on the path's table
-    kind; and, untimed, on a table of the other kind of the same stage."""
+def check_path_rulebooks(report, path, books, rulebooks=None):
+    """Every rulebook of a path's structures (``rulebooks``, by default
+    UNetSCN3D's ten) through the fused kernel (a RankTable) or the front
+    end, merge and decode (a KeyTable) against the plain versions and the
+    path's own rulebook, timed on the path's table kind; and, untimed, on
+    a table of the other kind of the same stage."""
     from lidarseg3d_torch.ops import coords as co
 
+    rbs = path_rulebooks(books) if rulebooks is None else rulebooks
     other = {}
-    for i in range(1, 5):
+    for i in sorted({i for _, _, i, _ in rbs}):
         si = books[f"s{i}"]
         build = (co.build_rank_table if isinstance(books[f"t{i}"],
                                                    co.KeyTable)
                  else co.build_key_table)
         other[i] = build(si.coords, si.num_voxels, si.spatial_shape)
-    for name, s, i, spec in path_rulebooks(books):
+    for name, s, i, spec in rbs:
         label = f"{path} {name} B={s.batch_size} V={s.capacity}"
         table, want = books[f"t{i}"], books[name]
         if isinstance(table, co.KeyTable):
@@ -1023,7 +1041,7 @@ def check_path_rulebooks(report, path, books):
         else:
             check_rulebook_rank(report, label, table.packed, s, spec, want)
             check_rulebook_keys(None, label, other[i], s, spec, want)
-    log(f"  {path}: all 10 rulebooks exact on both table kinds")
+    log(f"  {path}: all {len(rbs)} rulebooks exact on both table kinds")
 
 
 def check_single(report, name, packed, grid, q, ev):
@@ -1495,6 +1513,7 @@ def kernel_checks(runs):
         check_waymo_paths(report, runs, gen)
         check_sdseg_paths(report, runs, gen)
         check_cyl_paths(report, runs, gen)
+        check_det_paths(report, runs, gen)
 
         # the 0.1 m SemanticKITTI grid: 41 x 1504 x (1504 + 2) cells, with
         # a semkitti scan's voxel count spread over it key-sorted
@@ -3088,12 +3107,17 @@ def state_equals_checkpoint(state, path):
     return bad
 
 
-def train_entry_hook(ws, per_step, record, phase):
+def train_entry_hook(ws, per_step, record, phase, zero_grad_ok=False):
     """A TrainerHook that, after every step, holds each kernel's launches
     since the last step to ``per_step`` and the step's loss terms to
     finite values (kept in record["losses"]), snapshots the parameters at
     the start, and checks at the end that every parameter outside the
-    frozen stages moved (their count in record["moved"])."""
+    frozen stages moved (their count in record["moved"]). With
+    ``zero_grad_ok`` a parameter whose gradient was exactly zero at every
+    step may stay (record["zero_grad"]): CenterPoint's L1 regression gives
+    a head's output bias the sum of its objects' signs, which cancels
+    exactly over an even count, and Adam with decoupled decay leaves a
+    zero bias at zero."""
     import math
 
     import torch
@@ -3120,12 +3144,21 @@ def train_entry_hook(ws, per_step, record, phase):
                 raise SystemExit(f"phase {phase} step {global_step}: "
                                  f"launches {delta}, expected {per_step}")
             record.setdefault("losses", []).append((global_step, vals))
+            if zero_grad_ok:
+                self.graded = getattr(self, "graded", set()) | {
+                    k for k, p in state.model.named_parameters()
+                    if p.grad is not None and bool(p.grad.ne(0).any())}
 
         def after_run(self, state):
             params = dict(state.model.named_parameters())
             still = [k for k, p in self.before.items()
                      if torch.equal(p, params[k])
                      or not torch.isfinite(params[k]).all()]
+            if zero_grad_ok:
+                record["zero_grad"] = [k for k in still
+                                       if k not in self.graded
+                                       and torch.isfinite(params[k]).all()]
+                still = [k for k in still if k not in record["zero_grad"]]
             if still:
                 raise SystemExit(f"phase {phase}: {len(still)} parameters "
                                  "outside the frozen stages did not move or "
@@ -4239,8 +4272,490 @@ def conv_kernel_sums(per_name):
                 dw_kernels=tot["dw"][1])
 
 
+# phases 3r-3t: CenterPoint detection at its published configs, on seeded
+# trees with boxes (synthetic.write_semnusc_tree / write_semanticwaymo_tree
+# with boxes=20; the nuScenes tree with 9 sweeps of 26,000 returns before
+# each key frame, no cameras), seeded weights with BN calibrated on the
+# first val frame, through both entry points in-process. 3r: the two
+# nuScenes VoxelNet configs (rotated, then circle NMS) through tools.test,
+# the first through tools.train at samples_per_gpu=4 (2 epochs of one
+# step, then a resume); 3s: the Waymo VoxelNet 3x config through both
+# tools (its db_sampler on the tree's gt database from tools.create_data
+# waymo_gt_database; B=4: 4 x 150,000 conv rows), then the two-sweep
+# velocity config through tools.test; 3t: the Waymo PointPillars config
+# through both tools, which launches no kernel of the port. Launches per
+# frame and per step on tables (keys, keys, rank, rank), read from the
+# dispatch (SpMiddleResNetFHD: 21 convs; a KeyTable rulebook is the front
+# end, a merge and the decode, a RankTable one fused launch and a pack):
+# a frame builds subm1 down2 subm2 down3 on KeyTables and subm3 down4
+# subm4 down5 on RankTables; a step also the inverse rulebooks inv2 (a
+# KeyTable) and inv3 inv4 inv5 (RankTables; inv5 packs the table of the
+# extra conv's output), and runs 20 dX convs (the mean VFE has no
+# parameters: the input conv's features need no gradient) and 21 dW
+DET_NU = "configs/nusc/voxelnet/nusc_centerpoint_voxelnet_01voxel"
+DET_WY = "configs/waymo/voxelnet/waymo_centerpoint_voxelnet_"
+DET_PP = "configs/waymo/pp/waymo_centerpoint_pp_two_pfn_stride1_3x.py"
+DET_PER_FRAME = {"rulebook_conv": 21, "rulebook_conv_dw": 0,
+                 "rulebook_rank": 4, "rulebook_cells": 4,
+                 "rulebook_decode": 4, "lookup_single": 0, "rank_lookup": 0,
+                 "rank_pack": 2, "merge_lookup": 4}
+DET_PER_STEP = {"rulebook_conv": 41, "rulebook_conv_dw": 21,
+                "rulebook_rank": 7, "rulebook_cells": 5,
+                "rulebook_decode": 5, "lookup_single": 0, "rank_lookup": 0,
+                "rank_pack": 3, "merge_lookup": 5}
+DET_NONE = {k: 0 for k in DET_PER_FRAME}
+DET_NU_TREE = dict(scenes=("scene-0003", "scene-0001", "scene-0002"),
+                   samples=2, points=(30000, 34688), sweeps=9,
+                   sweep_points=26000, boxes=20, seed=20)
+# Waymo frames without second returns and with 3,000 short-range returns
+# (~172,000 points): with the objects the db_sampler pastes a frame stays
+# within the config's 180,000-point capacity, which training may not
+# overflow (a published-size SemanticWaymo frame has ~186,700)
+DET_WY_TREE = dict(frames={"train": 4, "val": 2}, boxes=20, seed=21,
+                   second_return=0.0, short_points=3000)
+# card vs CPU on one frame of the mini cut: boxes and scores of the valid
+# set within TOL_DET (metres, probability), selections exact
+TOL_DET = 1e-3
+_DET_WY_ROOT = []
+
+
+def det_tree_nu(tmp):
+    """The seeded nuScenes detection tree at the config's data root under
+    ``tmp`` and its 10-sweep infos (tools.create_data); -> seconds."""
+    from lidarseg3d_torch.synthetic import write_semnusc_tree
+    from lidarseg3d_torch.tools import create_data
+
+    t = DET_NU_TREE
+    root = os.path.join(tmp, "data/SemanticNusc")
+    t0 = time.perf_counter()
+    write_semnusc_tree(root, scenes=t["scenes"], samples=t["samples"],
+                       points=t["points"], seed=t["seed"], cams=(),
+                       boxes=t["boxes"], sweeps=t["sweeps"],
+                       sweep_points=t["sweep_points"])
+    create_data.main(["semanticnusc", "--root", root, "--nsweeps", "10"])
+    return time.perf_counter() - t0
+
+
+def det_tree_wy(tmp):
+    """The seeded Waymo detection tree (written once a run, removed at the
+    end) and its gt database (tools.create_data waymo_gt_database), linked
+    at data/Waymo under ``tmp``; -> seconds this call spent writing."""
+    import atexit
+    import shutil
+    import tempfile
+
+    from lidarseg3d_torch.synthetic import write_semanticwaymo_tree
+    from lidarseg3d_torch.tools import create_data
+
+    t0 = time.perf_counter()
+    if not _DET_WY_ROOT:
+        root = tempfile.mkdtemp(prefix="waymo_det_tree_")
+        atexit.register(shutil.rmtree, root, ignore_errors=True)
+        write_semanticwaymo_tree(root, splits=("train", "val"), cams=(),
+                                 **DET_WY_TREE)
+        create_data.main(["waymo_gt_database", "--root", root])
+        _DET_WY_ROOT.append(root)
+    os.makedirs(os.path.join(tmp, "data"), exist_ok=True)
+    os.symlink(_DET_WY_ROOT[0], os.path.join(tmp, "data/Waymo"))
+    return time.perf_counter() - t0
+
+
+def det_check_outputs(dets, ncls, phase):
+    """Every frame's boxes finite, labels in range, at least one valid
+    box. -> (frames, valid boxes)."""
+    import numpy as np
+
+    nvalid = 0
+    for token, d in dets.items():
+        v = d["valid"]
+        ok = (np.isfinite(d["box3d_lidar"]).all()
+              and np.isfinite(d["scores"]).all()
+              and ((d["label_preds"] >= 0) & (d["label_preds"] < ncls)).all()
+              and v.sum() >= 1
+              and ("velocity" not in d or np.isfinite(d["velocity"]).all()))
+        if not ok:
+            raise SystemExit(f"phase {phase}: frame {token}: non-finite or "
+                             f"out-of-range outputs, or no valid box "
+                             f"({int(v.sum())} valid)")
+        nvalid += int(v.sum())
+    return len(dets), nvalid
+
+
+def det_card_vs_cpu(cfg_path, tmp, phase):
+    """The config cut to a mini model (synthetic.write_mini_det_config)
+    over the same tree, seeded and BN-calibrated on the card, then on the
+    CPU with the same state: one val frame's forward and decode. The
+    selections (valid, labels) equal, boxes and scores of the valid set
+    within TOL_DET. -> the largest differences."""
+    cfg_path = os.path.abspath(cfg_path)
+    import numpy as np
+    import torch
+    from lidarseg3d_torch.models import build_detector
+    from lidarseg3d_torch.synthetic import write_mini_det_config
+    from lidarseg3d_torch.tools.test import input_shape_of, model_config
+    from lidarseg3d_torch.utils.config import Config
+
+    cfg0 = Config.fromfile(cfg_path)
+    root = os.path.join(tmp, cfg0.data.val.root_path)
+    mini = write_mini_det_config(os.path.join(tmp, "mini_det.py"), cfg_path,
+                                 os.path.realpath(root), max_points=400000)
+    cfg = Config.fromfile(mini)
+    ishape = input_shape_of(cfg)
+    ds = dataset_in(cfg, "val", tmp)
+    out, sds = {}, None
+    for dev in (DEV, "cpu"):
+        m = build_detector(model_config(cfg), device=dev)
+        ex = first_example(ds, caps(cfg), ishape, dev)
+        if sds is None:
+            calibrate_bn(m, ex)
+            sds = m.state_dict()
+        else:
+            m.load_state_dict({k: v.cpu() for k, v in sds.items()})
+        with torch.inference_mode():
+            ret, bat = m.eval()(ex)
+            p = m.predict(ret, bat)
+        out[dev] = {k: p[k].cpu().numpy() for k in
+                    ("box3d_lidar", "scores", "label_preds", "valid")}
+    a, b = out[DEV], out["cpu"]
+    v = b["valid"]
+    if not (np.array_equal(a["valid"], v) and np.array_equal(
+            a["label_preds"][v], b["label_preds"][v])) or not v.any():
+        raise SystemExit(f"phase {phase}: card vs CPU selections differ "
+                         f"({int(a['valid'].sum())} vs {int(v.sum())} valid)")
+    err = {k: float(np.abs(a[k][v] - b[k][v]).max())
+           for k in ("box3d_lidar", "scores")}
+    if max(err.values()) > TOL_DET:
+        raise SystemExit(f"phase {phase}: card vs CPU {err} > {TOL_DET}")
+    log(f"  card vs CPU (the mini cut, one frame, {int(v.sum())} valid "
+        f"boxes): selections equal, max |err| boxes "
+        f"{err['box3d_lidar']:.2e}, scores {err['scores']:.2e} "
+        f"(limit {TOL_DET})")
+    return err
+
+
+def det_eval(phase, cfg_path, tmp, per_frame, card_vs_cpu=True,
+             profile=False):
+    """One published detection config through tools.test (module notes
+    above): seeded weights, BN calibrated on frame 0, a checkpoint by
+    save_checkpoint; the launches per frame held to ``per_frame``, the
+    outputs checked, the prediction pkl (and nuScenes JSON) written; one
+    frame's forward and decode timed, together and each alone; the mini
+    cut card vs CPU. With ``profile``, phase 5 profiles the frame. The
+    loader runs threads (with_loader)."""
+    cfg_path = with_loader(cfg_path, os.path.join(
+        tmp, os.path.basename(cfg_path)), "thread")
+    import numpy as np
+    import torch
+    from lidarseg3d_torch.apis.train import TrainState, save_checkpoint
+    from lidarseg3d_torch.models import build_detector
+    from lidarseg3d_torch.tools import test as tool
+    from lidarseg3d_torch.tools.test import input_shape_of, model_config
+    from lidarseg3d_torch.utils.config import Config
+
+    cfg = Config.fromfile(cfg_path)
+    name = os.path.basename(cfg_path)[:-3]
+    work = os.path.join(tmp, "work_" + name)
+    ishape = input_shape_of(cfg)
+    ds = dataset_in(cfg, "val", tmp)
+    model = build_detector(model_config(cfg), device=DEV)
+    ex = first_example(ds, caps(cfg), ishape, DEV)
+    calibrate_bn(model, ex)
+    save_checkpoint(work, TrainState(0, model, None, None), 1)
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    cwd = os.getcwd()
+    os.chdir(tmp)  # the config's relative data paths
+    try:
+        out = tool.main([cfg_path, "--checkpoint", work, "--device", DEV,
+                         "--work_dir", work])
+    finally:
+        os.chdir(cwd)
+    launches = {k: w.launches for k, w in ws.items()}
+    want = {k: len(ds) * c for k, c in per_frame.items()}
+    if launches != want:
+        raise SystemExit(f"phase {phase} {name}: launches {launches}, "
+                         f"expected {want}")
+    ncls = len(cfg.class_names)
+    frames, nvalid = det_check_outputs(out["detections"], ncls, phase)
+    files = sorted(os.listdir(work))
+    if "det_predictions.pkl" not in files or (
+            cfg.dataset_type == "SemanticNuscDataset"
+            and "nusc_det_results.json" not in files):
+        raise SystemExit(f"phase {phase} {name}: wrote {files}")
+    nvox = int(ex["num_voxels"].sum())
+    ms, fwd_ms, dec_ms = [], [], []
+
+    def timed(fn, out):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    with torch.inference_mode():
+        for _ in range(4):
+            timed(lambda: model.predict(*model.eval()(ex)), ms)
+        for _ in range(4):
+            ret, bat = timed(lambda: model.eval()(ex), fwd_ms)
+            timed(lambda: model.predict(ret, bat), dec_ms)
+    log(f"  {name}: {frames} frames, {nvalid} valid boxes, launches "
+        f"{launches} (per frame {per_frame}); frame 0 {nvox} voxels, "
+        f"{int(ex['point_valid'].sum())} points; forward + decode ms "
+        f"{[round(x, 2) for x in ms]} (after the first: mean "
+        f"{np.mean(ms[1:]):.2f}); alone: forward ms "
+        f"{[round(x, 2) for x in fwd_ms]}, decode ms "
+        f"{[round(x, 2) for x in dec_ms]}; wrote {files}")
+    res = dict(frames=frames, valid_boxes=nvalid, voxels=nvox,
+               forward_decode_ms=ms, forward_ms=fwd_ms, decode_ms=dec_ms)
+    if card_vs_cpu:
+        res["card_vs_cpu"] = det_card_vs_cpu(cfg_path, tmp, phase)
+    return dict(model=model, ex0=ex, launches=launches, result=res,
+                no_profile=not profile, no_structures=True)
+
+
+def det_train(phase, cfg_path, tmp, per_step, profile=False):
+    """The config trained through tools.train at its samples_per_gpu=4:
+    2 epochs of one step (each step's launches held to ``per_step``, the
+    loss terms finite, every parameter moved), then a resume for a third
+    epoch whose loaded state must equal epoch_2's checkpoint exactly; the
+    step times and the peak memory; the first batch for phase 4 (and with
+    ``profile``, the resumed state and a train step for phase 5). The
+    loader runs threads (with_loader)."""
+    cfg_path = with_loader(cfg_path, os.path.join(
+        tmp, os.path.basename(cfg_path)), "thread")
+    import numpy as np
+    import torch
+    from lidarseg3d_torch.apis import train as tr
+    from lidarseg3d_torch.datasets import SegDataLoader
+    from lidarseg3d_torch.tools import train as tool
+    from lidarseg3d_torch.tools.test import input_shape_of
+    from lidarseg3d_torch.utils.config import Config
+
+    cfg = Config.fromfile(cfg_path)
+    name = os.path.basename(cfg_path)[:-3]
+    work = os.path.join(tmp, "train_" + name)
+    B = cfg.data.samples_per_gpu
+    args = [cfg_path, "--work_dir", work, "--max_steps_per_epoch", "1",
+            "--device", DEV]
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    record, timings = {}, []
+    torch.cuda.reset_peak_memory_stats()
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        tool.main(args + ["--total_epochs", "2"],
+                  hooks=[train_entry_hook(ws, per_step, record, phase,
+                                          zero_grad_ok=True)],
+                  timings=timings)
+        launches = {k: w.launches for k, w in ws.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        files = sorted(os.listdir(work))
+        if files != ["epoch_1", "epoch_2", "latest.txt", "train.log"] or \
+                launches != {k: 2 * c for k, c in per_step.items()}:
+            raise SystemExit(f"phase {phase} {name}: {files}, launches "
+                             f"{launches}, expected 2 x {per_step}")
+
+        class Check(tr.TrainerHook):
+            def before_run(self, state, loop):
+                self.diff = state_equals_checkpoint(
+                    state, os.path.join(work, "epoch_2"))
+                self.start = (int(state.step), int(state.opt_state.count))
+
+            def after_iter(self, state, ldict, global_step):
+                self.first = getattr(self, "first", global_step)
+
+            def after_run(self, state):
+                self.state = state
+
+        check = Check()
+        tool.main(args + ["--resume_from", "--total_epochs", "3"],
+                  hooks=[check, train_entry_hook(ws, per_step, record,
+                                                 phase, zero_grad_ok=True)])
+        if check.diff or check.start != (2, 2) or check.first != 2:
+            raise SystemExit(f"phase {phase} {name} resume: differs in "
+                             f"{check.diff[:5]}; starts at {check.start}, "
+                             f"first step {check.first}")
+        ds = dataset_in(cfg, "train", tmp)
+        with SegDataLoader(ds, B, **caps(cfg), shuffle=False,
+                           num_workers=1) as loader:
+            ex = tr.example_to_device(next(loader.epoch(0)), DEV)
+        ex["input_shape"] = input_shape_of(cfg)
+    finally:
+        os.chdir(cwd)
+    steps = [round(x["step_s"] * 1e3, 2) for x in timings]
+    waits = [round(x["data_s"] * 1e3, 2) for x in timings]
+    log(f"  {name} at B={B}: 2 steps, launches {launches} (per step "
+        f"{per_step}); {record['moved']} parameters moved but "
+        f"{record['zero_grad']} (a zero gradient at every step); resume "
+        f"equal to epoch_2, started at step 2; step ms {steps}, loader "
+        f"wait ms {waits}; peak memory {peak:.2f} GiB; batch 0 voxels "
+        f"{ex['num_voxels'].tolist()}")
+    for step, vals in record["losses"]:
+        log(f"  step {step}: " + ", ".join(f"{k} {v:.4f}"
+                                           for k, v in vals.items()))
+    model = check.state.model
+    more = {}
+    if profile:
+        from lidarseg3d_torch.solver.optim import build_one_cycle_optimizer
+
+        opt, _ = build_one_cycle_optimizer(
+            dict(cfg.optimizer), dict(cfg.lr_config), 3,
+            grad_clip=cfg.optimizer_config.grad_clip.max_norm)
+        more = dict(state=check.state, step=tr.make_train_step(
+            model, opt, input_shape_of(cfg)))
+    return dict(model=model, ex0=ex, launches=launches,
+                no_profile=not profile, **more,
+                result=dict(step_ms=steps, loader_wait_ms=waits,
+                            peak_gib=peak, moved=record["moved"],
+                            voxels=ex["num_voxels"].tolist(),
+                            step_ms_p50=float(np.percentile(
+                                [x["step_s"] * 1e3 for x in timings], 50))))
+
+
+def run_det_nu():
+    """Phase 3r (module notes above)."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="det_nu_")
+    secs = det_tree_nu(tmp)
+    log(f"  tree: {DET_NU_TREE} written with its infos in {secs:.1f} s")
+    out = {"det_nu_eval": det_eval("3r", DET_NU + ".py", tmp,
+                                   DET_PER_FRAME, profile=True),
+           "det_nu_circle_eval": det_eval("3r", DET_NU + "_circle_nms.py",
+                                          tmp, DET_PER_FRAME,
+                                          card_vs_cpu=False),
+           "det_nu_train": det_train("3r", DET_NU + ".py", tmp,
+                                     DET_PER_STEP)}
+    return out
+
+
+def run_det_wy():
+    """Phase 3s (module notes above)."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="det_wy_")
+    secs = det_tree_wy(tmp)
+    log(f"  tree: {DET_WY_TREE} and its gt database written in "
+        f"{secs:.1f} s")
+    return {"det_wy_eval": det_eval("3s", DET_WY + "3x.py", tmp,
+                                    DET_PER_FRAME),
+            "det_wy_train": det_train("3s", DET_WY + "3x.py", tmp,
+                                      DET_PER_STEP, profile=True),
+            "det_wy_velo_eval": det_eval(
+                "3s", DET_WY + "two_sweeps_3x_with_velo.py", tmp,
+                DET_PER_FRAME, card_vs_cpu=False)}
+
+
+def run_det_pp():
+    """Phase 3t (module notes above)."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="det_pp_")
+    det_tree_wy(tmp)
+    return {"det_pp_eval": det_eval("3t", DET_PP, tmp, DET_NONE),
+            "det_pp_train": det_train("3t", DET_PP, tmp, DET_NONE)}
+
+
+def det_rulebooks(b):
+    """The rulebooks of SpMiddleResNetFHD.structures (transposed): (name,
+    the structure whose rows it fills, the stage whose table it reads,
+    spec); the extra conv's inverse reads the table of its output, t5."""
+    from lidarseg3d_torch.models.backbones.scn_det import DOWN_STAGES, EXTRA
+    from lidarseg3d_torch.ops import sparse as sp
+
+    out = [(f"subm{i}", b[f"s{i}"], i, sp.subm_spec(b[f"t{i}"], b[f"s{i}"]))
+           for i in range(1, 5)]
+    for i, (stride, pad) in enumerate(DOWN_STAGES, start=2):
+        lo, hi = b[f"s{i}"], b[f"s{i - 1}"]
+        out.append((f"down{i}", lo, i - 1,
+                    sp.strided_spec(b[f"t{i - 1}"], hi, 3, stride, pad)))
+        out.append((f"inv{i}", hi, i,
+                    sp.inverse_spec(b[f"t{i}"], lo, 3, stride, pad)))
+    out.append(("down5", b["s5"], 4, sp.strided_spec(b["t4"], b["s4"],
+                                                     **EXTRA)))
+    out.append(("inv5", b["s4"], 5, sp.inverse_spec(b["t5"], b["s5"],
+                                                    **EXTRA)))
+    return out
+
+
+def check_det_paths(report, runs, gen):
+    """Phase 4's rows of the detection paths (3r, 3s): from a frame of
+    det-nu-eval (120,000 voxels, 10 sweeps) and a B=4 batch of det-wy-train
+    (4 x 150,000 rows), the input conv 5->16 (fp32), the stage-1 subm
+    16->16, the stride-2 conv 16->32, stage 4's strided conv 64->128
+    (padding (0, 1, 1)) and the extra (3, 1, 1) stride-(2, 1, 1) conv
+    128->128; at B=4 the stage-1 dX 16->16 and dW (600,000 rows) and the
+    extra conv's dX under its inverse rulebook; all 12 rulebooks of the
+    chain on both table kinds, the merge on the stage-1 and stage-2
+    KeyTables, and the pack and fused lookup on the stage-3 RankTable."""
+    import torch
+    from lidarseg3d_torch.ops import coords as co
+    from lidarseg3d_torch.ops import sparse as sp
+
+    for name in ("det_nu_eval", "det_wy_train"):
+        if name not in runs:
+            continue
+        m, ex = runs[name]["model"], runs[name]["ex0"]
+        with torch.no_grad():
+            feats = m.reader_mod(ex["voxels"], ex["num_points"],
+                                 ex["coordinates"])
+            s1 = sp.build_structure(ex["coordinates"], ex["num_voxels"],
+                                    ex["input_shape"])
+            b = m.backbone_mod.structures(s1, transposed=True)
+            b["t5"] = sp.dense_table(b["s5"])
+        B, V = feats.shape[:2]
+        kinds = [type(b[f"t{i}"]).__name__ for i in range(1, 6)]
+        log(f"  {name} tables {kinds}; stage voxels: " + " ".join(
+            f"s{i}={b[f's{i}'].num_voxels.tolist()}/{b[f's{i}'].capacity}"
+            for i in range(1, 6)))
+        if kinds[:4] != ["KeyTable", "KeyTable", "RankTable", "RankTable"]:
+            raise SystemExit(f"phase 4 {name}: table kinds {kinds}")
+        check_conv(report, f"{name} subm 5->16 B={B} V={V}", feats,
+                   b["subm1"], 5, 16, gen, dtypes=("fp32",))
+        f16 = torch.rand(B, V, 16, generator=gen).to(DEV)
+        check_conv(report, f"{name} subm 16->16 B={B} V={V}", f16,
+                   b["subm1"], 16, 16, gen)
+        check_conv(report, f"{name} strided 16->32 B={B} {V}->"
+                   f"{b['s2'].capacity}", f16, b["down2"], 16, 32, gen)
+        V3, V4, V5 = (b[f"s{i}"].capacity for i in (3, 4, 5))
+        f64 = torch.rand(B, V3, 64, generator=gen).to(DEV)
+        check_conv(report, f"{name} strided (0,1,1) 64->128 B={B} "
+                   f"{V3}->{V4}", f64, b["down4"], 64, 128, gen)
+        f128 = torch.rand(B, V4, 128, generator=gen).to(DEV)
+        check_conv(report, f"{name} extra (3,1,1)/(2,1,1) 128->128 B={B} "
+                   f"{V4}->{V5}", f128, b["down5"], 128, 128, gen)
+        if name == "det_wy_train":
+            check_conv(report, f"dX of subm 16->16 {name} B={B} V={V}",
+                       f16, b["subm1"], 16, 16, gen, dx=True)
+            check_dw(report, f"{name} subm 16->16 B={B} V={V}", f16,
+                     b["subm1"], 16, 16, gen)
+            g5 = torch.rand(B, V5, 128, generator=gen).to(DEV)
+            check_conv(report, f"dX of extra (3,1,1) {name} B={B} "
+                       f"{V5}->{V4}", g5, b["inv5"], 128, 128, gen, dx=True)
+            del g5
+        del f16, f64, f128
+        check_path_rulebooks(report, name, b, det_rulebooks(b))
+        for i in (1, 2):
+            Z, Y, X = b[f"s{i}"].spatial_shape
+            check_merge(report, f"{name} stage-{i} subm B={B} "
+                        f"{Z * Y * (X + 2)} cells", b[f"t{i}"],
+                        subm_stream(b, i))
+        s3 = b["s3"]
+        act3 = co.activity(s3.coords, s3.num_voxels, s3.spatial_shape)
+        nce3 = act3.shape[1] - 1
+        check_pack(report, f"{name} stage-3 B={B} {nce3} cells", act3, nce3)
+        check_lookup(report, f"{name} stage-3 B={B} {nce3} cells",
+                     b["t3"].packed, subm_stream(b, 3))
+        del b, feats, act3
+        torch.cuda.empty_cache()
+
+
 PHASES = ("3", "3b", "3c", "3d", "3e", "3f", "3g", "3h", "3i", "3j", "3k",
-          "3l", "3m", "3n", "3o", "3p", "3q", "4", "5")
+          "3l", "3m", "3n", "3o", "3p", "3q", "3r", "3s", "3t", "4", "5")
 
 
 def parse_args(argv):
@@ -4348,6 +4863,14 @@ def main(argv=None):
                       TRAIN_WAYMO_BASE, EVAL_WAYMO_BASE, "3p")}),
         ("3q", "bf16 image branch in training, and HRNet-w48",
          run_bf16_w48),
+        ("3r", "main path det-nu (published nuScenes CenterPoint VoxelNet "
+         "configs: eval with rotated and circle NMS, trained at B=4)",
+         run_det_nu),
+        ("3s", "main path det-wy (published Waymo CenterPoint VoxelNet "
+         "config through both tools, B=4 with the db_sampler; the two-sweep "
+         "velocity config evaluated)", run_det_wy),
+        ("3t", "main path det-pp (published Waymo PointPillars config "
+         "through both tools: no kernel of the port)", run_det_pp),
     ]
     for ph, text, fn in steps:
         if ph in want:
@@ -4369,22 +4892,34 @@ def main(argv=None):
         phase("5: profile of one scan per inference path, one train step, "
               "and each inference path's structures+rulebooks build")
         for name, r in runs.items():
-            if "model" not in r:  # ran in processes of its own (3n)
+            if "model" not in r or r.get("no_profile"):
+                # 3n ran in processes of its own; of 3r-3t, det_nu_eval and
+                # det_wy_train are profiled
                 continue
             log(f"  {name}:")
             training = "step" in r
+            det = r.get("no_structures", False)
             if training:
                 fn = lambda r=r: r["step"](r["state"], r["ex0"])  # noqa: E731
             else:
-                def fn(r=r):
-                    ret, bat = r["model"](r["ex0"])
-                    r["model"].predict(ret, bat)
+                def fn(r=r, det=det):
+                    # a detector builds its inverse rulebooks only while
+                    # autograd records, so its frame runs as tools.test
+                    # runs it
+                    with torch.inference_mode(det):
+                        ret, bat = r["model"](r["ex0"])
+                        r["model"].predict(ret, bat)
             share, per_name = profile_call(
-                fn, "train step" if training else "scan")
+                fn, "train step" if training else "scan",
+                host_top=12 if det else 0)
             log("  its conv and dW kernels (device time, launches):")
             r["result"]["device_busy_share"] = share
             r["result"]["conv_kernels"] = conv_kernel_sums(per_name)
-            if not training:
+            if det:
+                r["result"]["kernels_by_name"] = {
+                    k: [us / 1e3, n] for k, (us, n) in sorted(
+                        per_name.items(), key=lambda kv: -kv[1][0])[:12]}
+            elif not training:
                 log(f"  {name}, structures+rulebooks of one scan:")
                 r["result"]["structures"] = profile_structures(name, r)
     log(json.dumps({"main_path": {n: r["result"] for n, r in runs.items()},

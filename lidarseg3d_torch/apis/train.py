@@ -65,9 +65,16 @@ DEVICE_BATCH_KEYS = (
 
 
 def example_to_device(batch, device):
-    """The padded numpy batch's device keys as tensors on ``device``."""
-    return _to_device({k: batch[k] for k in DEVICE_BATCH_KEYS if k in batch},
-                      device)
+    """The padded numpy batch's device keys as tensors on ``device``; a
+    detection batch's ``det_targets`` (a dict of arrays per task) and
+    ``gt_boxes_and_cls`` too, which the JAX package's DEVICE_BATCH_KEYS
+    leave on the host (so its tools cannot train a detector)."""
+    ex = _to_device({k: batch[k] for k in DEVICE_BATCH_KEYS
+                     + ("gt_boxes_and_cls",) if k in batch}, device)
+    if "det_targets" in batch:
+        ex["det_targets"] = [_to_device(t, device)
+                             for t in batch["det_targets"]]
+    return ex
 
 
 @dataclass

@@ -12,9 +12,13 @@ is its ``state_dict`` key, except for:
   TransformerEncoderLayerPreNorm_0/...`` (TransVFE) -> ``EncoderLayers.{i}``;
 - leaf layouts, chosen by the type of the torch module that owns the leaf:
   Linear kernel [in, out] (or a DenseGeneral's [in, H, dh] / [H, dh, out])
-  -> weight [out, in]; Conv2d kernel HWIO -> OIHW; sparse conv kernel
-  [K, Cin, Cout] as is; BN/LayerNorm scale -> weight; BN batch_stats
-  mean/var -> running_mean/running_var.
+  -> weight [out, in]; Conv2d kernel HWIO -> OIHW; ConvTranspose kernel
+  HWIO -> [in, out, H, W] flipped in both spatial axes (Flax's
+  ``nn.ConvTranspose`` with ``transpose_kernel=False`` and SAME padding,
+  kernel == stride, is torch's transposed conv of the flipped kernel);
+  sparse conv kernel and DCN ``deform_kernel`` [K, Cin, Cout] as is;
+  BN/LayerNorm scale -> weight; BN batch_stats mean/var ->
+  running_mean/running_var.
 
 The conversion is strict: every leaf is consumed and every parameter and
 buffer of the model is assigned, or it raises and names what is left.
@@ -75,11 +79,15 @@ def _convert_leaf(module, collection, leaf, arr):
         return "weight", arr
     if leaf == "bias":
         return "bias", arr.reshape(-1)
+    if leaf == "deform_kernel":  # DCN [K, C, Cout] as is
+        return "deform_kernel", arr
     if leaf == "kernel":
         if isinstance(module, nn.Linear):
             return "weight", arr.reshape(module.in_features, -1).T
         if isinstance(module, nn.Conv2d):
             return "weight", arr.transpose(3, 2, 0, 1)
+        if isinstance(module, nn.ConvTranspose2d):
+            return "weight", arr[::-1, ::-1].transpose(2, 3, 0, 1)
         if isinstance(module, _SparseConvBase):
             return "weight", arr
     raise KeyError(f"no conversion for {collection} leaf {leaf!r} of "
@@ -133,13 +141,15 @@ def _flax_leaf(module, attr, arr):
     -> (collection, Flax leaf name, array in Flax layout)."""
     if attr in ("running_mean", "running_var"):
         return "batch_stats", attr[len("running_"):], arr
-    if attr == "bias":
-        return "params", "bias", arr
+    if attr in ("bias", "deform_kernel"):
+        return "params", attr, arr
     if attr == "weight":
         if isinstance(module, nn.Linear):
             return "params", "kernel", arr.T
         if isinstance(module, nn.Conv2d):
             return "params", "kernel", arr.transpose(2, 3, 1, 0)
+        if isinstance(module, nn.ConvTranspose2d):
+            return "params", "kernel", arr.transpose(2, 3, 0, 1)[::-1, ::-1]
         if isinstance(module, _SparseConvBase):
             return "params", "kernel", arr
         return "params", "scale", arr

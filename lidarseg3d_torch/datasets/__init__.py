@@ -4,8 +4,8 @@ stage and dataset it holds."""
 
 from .registry import DATASETS, PIPELINES  # noqa: F401
 from .builder import build_dataset  # noqa: F401
-from .pipelines import (compose, instance_aug, loading,  # noqa: F401
-                        seg_preprocess)
+from .pipelines import (compose, det_pipeline, instance_aug,  # noqa: F401
+                        loading, seg_preprocess)
 from .semantickitti import dataset as _semkitti  # noqa: F401
 from .nuscenes import dataset as _nusc  # noqa: F401
 from .waymo import dataset as _waymo  # noqa: F401

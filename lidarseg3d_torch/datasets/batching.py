@@ -1,6 +1,7 @@
 """Padded fixed-capacity batches from per-frame host data (own copy of
 ``pad_axis0``, ``collate_segnet`` and ``pad_batch_rows`` of
-lidarseg3d_tpu/datasets/batching.py, segmentation keys only)."""
+lidarseg3d_tpu/datasets/batching.py): the segmentation keys and the
+detection extras (``det_targets`` stacked per task, ``gt_boxes_and_cls``)."""
 
 import logging
 
@@ -102,6 +103,15 @@ def collate_segnet(frames, max_voxels, max_points, ignore_label=0,
         batch["voxel_valid"] = (
             np.arange(max_voxels)[None, :] < batch["num_voxels"][:, None])
     batch["metadata"] = [fr.get("metadata") for fr in frames]
+    # detection: the center targets stacked per task, the padded gt boxes
+    if "det_targets" in frames[0]:
+        batch["det_targets"] = [
+            {k: np.stack([fr["det_targets"][t][k] for fr in frames])
+             for k in frames[0]["det_targets"][t]}
+            for t in range(len(frames[0]["det_targets"]))]
+    if "gt_boxes_and_cls" in frames[0]:
+        batch["gt_boxes_and_cls"] = np.stack(
+            [fr["gt_boxes_and_cls"] for fr in frames])
     return batch
 
 

@@ -175,10 +175,13 @@ class LoadPointCloudFromFile:
                 obj = pickle.load(f)
             sample["waymo_obj"] = obj
             points = _waymo_points(obj)
-            if sample.get("nsweeps", 1) > 1 and info.get("sweeps"):
+            # a frame without a previous one (a context's first) still
+            # gets the time-lag column, so every frame of a multi-sweep
+            # config has the same width (the JAX package's has one less)
+            if sample.get("nsweeps", 1) > 1:
                 rows = [np.concatenate(
                     [points, np.zeros((len(points), 1), np.float32)], 1)]
-                for sw in info["sweeps"][: sample["nsweeps"] - 1]:
+                for sw in info.get("sweeps", [])[: sample["nsweeps"] - 1]:
                     with open(sw["path"], "rb") as f:
                         p = _waymo_points(pickle.load(f))
                     T = np.asarray(sw["sweep_to_ref"], np.float32)

@@ -15,7 +15,10 @@ Checks per dataset:
   the matching ``samples/LIDAR_TOP/*.pcd.bin`` scan (float32 5-column
   rows, size % 20 == 0); raw category ids < 32.
 - semanticwaymo: ``<root>/<split>/*.tfrecord`` segments present and
-  non-empty (the converter's input, waymo/converter.py).
+  non-empty (the converter's input, waymo/converter.py); where the split
+  was converted into ``<root>`` (``infos_<split>_*sweeps_segdet.pkl``),
+  its frame pkls carry the detection boxes (``gt_boxes`` [N, 7],
+  ``gt_names``, ``gt_num_points`` in ``annotations``).
 
 Each function raises DataTreeError with an actionable message at the
 first hard failure and returns a summary dict on success.
@@ -171,7 +174,7 @@ def validate_semanticnusc(root, version="v1.0-trainval", max_frames=8):
             "lidarseg_records": len(lidarseg), "checked": checked}
 
 
-def validate_semanticwaymo(root, split="training"):
+def validate_semanticwaymo(root, split="training", max_frames=8):
     sdir = osp.join(root, split)
     if not osp.isdir(sdir):
         _fail(f"{sdir!r} missing — expected <root>/{split}/*.tfrecord "
@@ -182,5 +185,43 @@ def validate_semanticwaymo(root, split="training"):
     empty = [f for f in recs if osp.getsize(osp.join(sdir, f)) == 0]
     if empty:
         _fail(f"empty tfrecords under {sdir!r}: {empty[:4]}")
-    return {"dataset": "semanticwaymo", "split": split,
-            "tfrecords": len(recs)}
+    rep = {"dataset": "semanticwaymo", "split": split,
+           "tfrecords": len(recs)}
+    infos = sorted(f for f in os.listdir(root)
+                   if f.startswith(f"infos_{split}_")
+                   and f.endswith("sweeps_segdet.pkl"))
+    if infos:
+        rep.update(_check_waymo_frames(root, infos, max_frames))
+    return rep
+
+
+def _check_waymo_frames(root, infos, max_frames):
+    """Read up to ``max_frames`` frame pkls of each converted info file:
+    each must carry one gt box, name and point count per label (a
+    converter that drops the labels leaves them out, and every detection
+    config would then train on empty targets)."""
+    import pickle
+
+    n_frames = n_boxes = 0
+    for name in infos:
+        with open(osp.join(root, name), "rb") as f:
+            paths = [i["path"] for i in pickle.load(f)]
+        for path in _sample(paths, max_frames):
+            with open(path, "rb") as f:
+                ann = pickle.load(f).get("annotations", {})
+            missing = [k for k in ("gt_boxes", "gt_names", "gt_num_points")
+                       if k not in ann]
+            if missing:
+                _fail(f"frame {path!r} has no {missing} in its annotations "
+                      "— converted without the box labels; convert the "
+                      "split again (waymo/converter.py)")
+            n = len(ann["gt_boxes"])
+            if (np.shape(ann["gt_boxes"]) != (n, 7)
+                    or len(ann["gt_names"]) != n
+                    or len(ann["gt_num_points"]) != n):
+                _fail(f"frame {path!r}: gt_boxes {np.shape(ann['gt_boxes'])}"
+                      f", {len(ann['gt_names'])} gt_names and "
+                      f"{len(ann['gt_num_points'])} gt_num_points")
+            n_frames += 1
+            n_boxes += n
+    return {"converted_frames": n_frames, "gt_boxes": n_boxes}

@@ -16,7 +16,10 @@ range images without the tfrecords (``top_slices_of``).
 Unlike the JAX package's converter, each info also carries the frame's
 ``cam_paths``: the image loader reads them from the info (the JAX
 converter stores them in the frame pkl only, where its loader does not
-look; ROADMAP §C).
+look; ROADMAP §C). Each frame's ``laser_labels`` become the detection
+boxes of its annotations (``gt_boxes``, ``gt_names``, ``gt_num_points``),
+as in the JAX converter (``validate.validate_semanticwaymo`` checks that
+the written frames carry them).
 """
 
 import os
@@ -95,7 +98,23 @@ def decode_frame(frame):
             else:
                 labels_all.append(np.zeros(len(p), np.uint8))
 
-    points = np.concatenate(points_all, axis=0)
+    return frame_record(
+        frame, np.concatenate(points_all, axis=0),
+        np.concatenate(cp_all, axis=0), np.concatenate(labels_all, axis=0),
+        num_seg_points, top_slices_of(ri_starts, top_counts),
+        {"ri1": _top_range_image_indexing(range_images, 0),
+         "ri2": _top_range_image_indexing(range_images, 1)})
+
+
+def frame_record(frame, points, points_cp, labels, num_seg_points,
+                 top_slices, top_ri_indexing):
+    """The frame pkl's dict from the decoded arrays (points [N, 5] x, y,
+    z, intensity, elongation) and the proto's pose, timestamp and
+    ``laser_labels``, whose boxes (``_decode_laser_labels``) join the
+    annotations, as in the JAX converter. Reads only attributes of
+    ``frame``."""
+    import numpy as np
+
     return {
         "veh_to_global": np.asarray(frame.pose.transform,
                                     np.float64).reshape(4, 4),
@@ -103,18 +122,42 @@ def decode_frame(frame):
         "lidars": {
             "points_xyz": points[:, :3],
             "points_feature": points[:, 3:5],
-            "points_cp": np.concatenate(cp_all, axis=0),
-            "num_points_of_top_lidar": {"ri_return1": int(top_counts[0]),
-                                        "ri_return2": int(top_counts[1])},
-            "top_slices": top_slices_of(ri_starts, top_counts),
-            "top_ri_indexing": {
-                "ri1": _top_range_image_indexing(range_images, 0),
-                "ri2": _top_range_image_indexing(range_images, 1)},
+            "points_cp": points_cp,
+            "num_points_of_top_lidar": {
+                "ri_return1": int(top_slices["ri1"][1]),
+                "ri_return2": int(top_slices["ri2"][1])},
+            "top_slices": top_slices,
+            "top_ri_indexing": top_ri_indexing,
         },
         "annotations": {
-            "point_sem_labels": np.concatenate(labels_all, axis=0),
+            "point_sem_labels": labels,
             "num_seg_points": int(num_seg_points),
+            **_decode_laser_labels(frame),
         },
+    }
+
+
+_WAYMO_TYPE_NAMES = {1: "VEHICLE", 2: "PEDESTRIAN", 3: "SIGN", 4: "CYCLIST"}
+
+
+def _decode_laser_labels(frame):
+    """frame.laser_labels -> the detection pipeline's gt boxes:
+    ``gt_boxes`` [N, 7] (x, y, z, length, width, height, heading),
+    ``gt_names`` (VEHICLE, PEDESTRIAN, SIGN, CYCLIST, else UNKNOWN) and
+    ``gt_num_points`` (num_lidar_points_in_box)."""
+    import numpy as np
+
+    boxes, names, counts = [], [], []
+    for lab in frame.laser_labels:
+        b = lab.box
+        boxes.append([b.center_x, b.center_y, b.center_z,
+                      b.length, b.width, b.height, b.heading])
+        names.append(_WAYMO_TYPE_NAMES.get(int(lab.type), "UNKNOWN"))
+        counts.append(int(lab.num_lidar_points_in_box))
+    return {
+        "gt_boxes": np.asarray(boxes, np.float32).reshape(-1, 7),
+        "gt_names": np.asarray(names, dtype=object),
+        "gt_num_points": np.asarray(counts, np.int32),
     }
 
 

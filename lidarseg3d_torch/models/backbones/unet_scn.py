@@ -23,9 +23,10 @@ class UNetSCN3D(nn.Module):
                  point_cloud_range=(), voxel_size=(), model_cfg=None):
         super().__init__()
         cfg = dict(model_cfg or {})
-        if cfg.get("RETURN_ENCODED_TENSOR", False):
-            raise NotImplementedError(
-                "the detection encoded tensor is not ported (ROADMAP A9)")
+        # the detection-only encoded tensor: an extra (3, 1, 1) conv of
+        # stride (2, 1, 1) on stage 4 (JAX unet_scn.py RETURN_ENCODED_TENSOR)
+        self.encoded = bool(cfg.get("RETURN_ENCODED_TENSOR", False))
+        self.last_pad = cfg.get("last_pad", 0)
         self.point_cloud_range = tuple(point_cloud_range)
         self.voxel_size = tuple(voxel_size)
         self.caps = cfg.get("DOWN_CAPACITY_RATIOS", (0.5, 0.25, 0.15))
@@ -44,25 +45,31 @@ class UNetSCN3D(nn.Module):
         self.SparseBasicBlockStack_2 = SparseBasicBlockStack(c3, remat=rm)
         self.SparseConvBNReLU_3 = cbr(c3, c3, conv_type="spconv")
         self.SparseBasicBlockStack_3 = SparseBasicBlockStack(c3, remat=rm)
+        e = 0
+        if self.encoded:  # Flax creates it before the decoder's convs
+            self.SparseConvBNReLU_4 = cbr(c3, 128, kernel_size=(3, 1, 1),
+                                          conv_type="spconv")
+            e = 1
         # decoder: per UR block a lateral residual block, a subm conv of the
-        # concat, and the inverse conv (the last stage's is a subm conv)
-        self.SparseBasicBlock_0 = SparseBasicBlock(c3)
-        self.SparseConvBNReLU_4 = cbr(2 * c3, c3)
-        self.SparseConvBNReLU_5 = cbr(c3, c3, conv_type="inverseconv")
-        self.SparseBasicBlock_1 = SparseBasicBlock(c3)
-        self.SparseConvBNReLU_6 = cbr(2 * c3, c3)
-        self.SparseConvBNReLU_7 = cbr(c3, c2, conv_type="inverseconv")
-        self.SparseBasicBlock_2 = SparseBasicBlock(c2)
-        self.SparseConvBNReLU_8 = cbr(2 * c2, c2)
-        self.SparseConvBNReLU_9 = cbr(c2, c1, conv_type="inverseconv")
-        self.SparseBasicBlock_3 = SparseBasicBlock(c1)
-        self.SparseConvBNReLU_10 = cbr(2 * c1, c1)
-        self.SparseConvBNReLU_11 = cbr(c1, c1)
+        # concat, and the inverse conv (the last stage's is a subm conv);
+        # its convs are SparseConvBNReLU_{4+e} .. _{11+e}, in self.dec
+        self.dec = []
+        for i, (c_lat, c_out) in enumerate(((c3, c3), (c3, c2), (c2, c1),
+                                            (c1, c1))):
+            setattr(self, f"SparseBasicBlock_{i}", SparseBasicBlock(c_lat))
+            for j, (cin, c, kind) in enumerate((
+                    (2 * c_lat, c_lat, "subm"),
+                    (c_lat, c_out, "inverseconv" if i < 3 else "subm"))):
+                m = cbr(cin, c, conv_type=kind)
+                setattr(self, f"SparseConvBNReLU_{4 + e + 2 * i + j}", m)
+                self.dec.append(m)
 
     def structures(self, s1: sp.SparseStructure):
         """Stage structures s1-s4, their lookup tables t1-t4 (RankTables or
         KeyTables, as sparse.dense_table picks) and the 10 rulebooks
-        (4 subm, 3 strided, 3 inverse)."""
+        (4 subm, 3 strided, 3 inverse); with RETURN_ENCODED_TENSOR also
+        the extra conv's structure and strided rulebook (and, when
+        gradients are recorded, its inverse)."""
         V = s1.capacity
         caps, sites = self.caps, self.sites
         down = sp.downsample_structure
@@ -89,6 +96,15 @@ class UNetSCN3D(nn.Module):
         b["inv4"] = sp.build_inverse_rulebook(s4, s3, 3, 2, (0, 1, 1),
                                               table=t4)
         b.update(s2=s2, s3=s3, s4=s4, t2=t2, t3=t3, t4=t4)
+        if self.encoded:
+            enc = dict(kernel_size=(3, 1, 1), stride=(2, 1, 1),
+                       padding=self.last_pad)
+            b["s_enc"] = down(s4, (2, 1, 1), capacity=s4.capacity)
+            b["down_enc"] = sp.build_strided_rulebook(s4, b["s_enc"],
+                                                      table=t4, **enc)
+            if torch.is_grad_enabled():  # only the conv's backward reads it
+                b["inv_enc"] = sp.build_inverse_rulebook(b["s_enc"], s4,
+                                                         **enc)
         return b
 
     def convs(self, st_in: sp.SparseTensor, b):
@@ -106,6 +122,13 @@ class UNetSCN3D(nn.Module):
         x = self.SparseConvBNReLU_3(x_conv3, b["down4"], out_struct=b["s4"],
                                     rulebook_t=b["inv4"])
         x_conv4 = self.SparseBasicBlockStack_3(x, b["subm4"])
+        out = {}
+        if self.encoded:
+            out["encoded_spconv_tensor"] = self.SparseConvBNReLU_4(
+                x_conv4, b["down_enc"], out_struct=b["s_enc"],
+                rulebook_t=b.get("inv_enc"))
+            out["encoded_spconv_tensor_stride"] = 8
+        dec = self.dec
 
         def ur_block(x_lateral, x_bottom, rb_lat, lat_block, mid):
             x_trans = lat_block(x_lateral, rb_lat)
@@ -116,21 +139,22 @@ class UNetSCN3D(nn.Module):
             return sp.SparseTensor(x_lateral.structure, x_m.features + red)
 
         f = ur_block(x_conv4, x_conv4, b["subm4"], self.SparseBasicBlock_0,
-                     self.SparseConvBNReLU_4)
-        x_up4 = self.SparseConvBNReLU_5(f, b["inv4"], out_struct=b["s3"],
-                                        rulebook_t=b["down4"])
+                     dec[0])
+        x_up4 = dec[1](f, b["inv4"], out_struct=b["s3"],
+                       rulebook_t=b["down4"])
         f = ur_block(x_conv3, x_up4, b["subm3"], self.SparseBasicBlock_1,
-                     self.SparseConvBNReLU_6)
-        x_up3 = self.SparseConvBNReLU_7(f, b["inv3"], out_struct=b["s2"],
-                                        rulebook_t=b["down3"])
+                     dec[2])
+        x_up3 = dec[3](f, b["inv3"], out_struct=b["s2"],
+                       rulebook_t=b["down3"])
         f = ur_block(x_conv2, x_up3, b["subm2"], self.SparseBasicBlock_2,
-                     self.SparseConvBNReLU_8)
-        x_up2 = self.SparseConvBNReLU_9(f, b["inv2"], out_struct=b["s1"],
-                                        rulebook_t=b["down2"])
+                     dec[4])
+        x_up2 = dec[5](f, b["inv2"], out_struct=b["s1"],
+                       rulebook_t=b["down2"])
         f = ur_block(x_conv1, x_up2, b["subm1"], self.SparseBasicBlock_3,
-                     self.SparseConvBNReLU_10)
-        x_up1 = self.SparseConvBNReLU_11(f, b["subm1"])
+                     dec[6])
+        x_up1 = dec[7](f, b["subm1"])
         return dict(
+            out,
             conv_point_features=x_up1.features,  # [B, V, 16r]
             conv_point_coords=sp.voxel_centers(
                 b["s1"], self.voxel_size, self.point_cloud_range),

@@ -34,6 +34,14 @@ def build_img_head(cfg):
     return build_from_cfg(cfg, registry.IMG_HEADS)
 
 
+def build_neck(cfg):
+    return build_from_cfg(cfg, registry.NECKS)
+
+
+def build_head(cfg):
+    return build_from_cfg(cfg, registry.HEADS)
+
+
 def build_detector(cfg, device=None, seed=0):
     dev = resolve_device(device)
     model = build_from_cfg(cfg, registry.DETECTORS)

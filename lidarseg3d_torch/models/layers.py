@@ -7,8 +7,10 @@ so a ``state_dict`` key is the Flax parameter path with ``/`` read as
 
 Initialization: ``init_parameters`` fills every parameter from an explicit
 ``torch.Generator`` with the JAX package's torch-default distributions:
-U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for linear, conv and sparse-conv
-weights and biases; ones/zeros for norms; BN running stats 0/1.
+U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for linear, conv, transposed-conv,
+sparse-conv and DCN weights and biases; ones/zeros for norms; BN running
+stats 0/1; a module's ``weight_fill`` / ``bias_fill`` (the JAX package's
+constant initializers) last.
 """
 
 import math
@@ -149,7 +151,7 @@ def init_parameters(model, generator):
             uniform_(m.weight, m.in_features)
             if m.bias is not None:
                 uniform_(m.bias, m.in_features)
-        elif isinstance(m, nn.Conv2d):
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
             uniform_(m.weight, fan_in)
             if m.bias is not None:
@@ -162,3 +164,12 @@ def init_parameters(model, generator):
                 m.running_var.fill_(1.0)
         elif hasattr(m, "sparse_weight_fan_in"):
             uniform_(m.weight, m.sparse_weight_fan_in)
+        elif hasattr(m, "deform_kernel"):  # [K, C, Cout]: fan_in K * C
+            K, C, _ = m.deform_kernel.shape
+            uniform_(m.deform_kernel, K * C)
+        # the JAX package's constant initializers (CenterHead's heatmap
+        # bias, the zero DCN offset convs)
+        if getattr(m, "weight_fill", None) is not None:
+            m.weight.fill_(m.weight_fill)
+        if getattr(m, "bias_fill", None) is not None:
+            m.bias.fill_(m.bias_fill)

@@ -8,3 +8,5 @@ POINT_HEADS = Registry("point_head")
 IMG_BACKBONES = Registry("img_backbone")
 IMG_HEADS = Registry("img_head")
 DETECTORS = Registry("detector")
+NECKS = Registry("neck")
+HEADS = Registry("head")

@@ -20,8 +20,16 @@ converts ``R/SPLIT/*.tfrecord`` into frame pkls, camera JPEGs and
 ``infos_SPLIT_NNsweeps_segdet.pkl`` through
 ``datasets.waymo.converter.create_semanticwaymo_infos``, which needs
 tensorflow and waymo_open_dataset (it raises ImportError without them);
-its ``--dry-data`` checks the split's tfrecords. ``waymo_gt_database``
-(detection's ground-truth database) raises: detection is not ported.
+its ``--dry-data`` checks the split's tfrecords.
+
+    python -m lidarseg3d_torch.tools.create_data waymo_gt_database --root R
+        [--nsweeps 1] [--out_dir D]
+
+writes detection's ground-truth database from the converted training
+frames (``R/infos_train_NNsweeps_segdet.pkl``): each VEHICLE, PEDESTRIAN
+and CYCLIST box's points (at least 5) as ``D/gt_database/CLASS_I.bin`` and
+``D/dbinfos_train.pkl``, which the Waymo detection configs' ``db_sampler``
+reads (``datasets.pipelines.det_pipeline.create_gt_database``).
 """
 
 import argparse
@@ -49,10 +57,7 @@ def main(argv=None):
     of the info files written."""
     args = parse_args(argv)
     if args.dataset == "waymo_gt_database":
-        raise NotImplementedError(
-            "waymo_gt_database: the Waymo detection ground-truth database "
-            "(det_pipeline.create_gt_database) is not ported to "
-            "lidarseg3d_torch (ROADMAP A9, detection legacy)")
+        return [waymo_gt_database(args.root, args.nsweeps, args.out_dir)]
     if args.dataset == "semantickitti" and not args.dry_data:
         raise SystemExit("semantickitti reads raw sequences (no info "
                          "files); only --dry-data applies")
@@ -86,6 +91,28 @@ def main(argv=None):
         cam_chans=CAM_CHANS if args.cams else None, out_dir=args.out_dir)
     print("\n".join(f"wrote {p}" for p in paths))
     return paths
+
+
+def waymo_gt_database(root, nsweeps=1, out_dir=None):
+    """The Waymo detection gt database (module docstring) -> the path of
+    dbinfos_train.pkl."""
+    import os
+
+    from ..datasets import build_dataset
+    from ..datasets.pipelines.det_pipeline import create_gt_database
+
+    ds = build_dataset(dict(
+        type="SemanticWaymoDataset", root_path=root,
+        info_path=os.path.join(root,
+                               f"infos_train_{nsweeps:02d}sweeps_segdet.pkl"),
+        pipeline=[dict(type="LoadPointCloudFromFile",
+                       dataset="SemanticWaymoDataset"),
+                  dict(type="LoadDetAnnotations")]))
+    db = create_gt_database(ds, out_dir or root,
+                            class_names=["VEHICLE", "PEDESTRIAN", "CYCLIST"],
+                            min_points=5)
+    print(f"wrote {db}")
+    return db
 
 
 if __name__ == "__main__":

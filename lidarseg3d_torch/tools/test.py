@@ -28,8 +28,17 @@ On several processes (torchrun or the ``--dist_*`` flags, as
 variants with their frame, and counts the frames it owns: the histograms
 are summed over the processes, so every frame counts once and every
 process returns the mIoU of the whole split; rank 0 logs it, and on the
-test split rank 0 gathers the predictions and writes the files. Not
-ported: the detection models.
+test split rank 0 gathers the predictions and writes the files.
+
+Detection configs (VoxelNet, PointPillars) take the JAX tool's detection
+branch: ``apis.det_eval.run_det_eval`` decodes the boxes (rotated or
+circle NMS and double flip as the config's ``test_cfg`` says), the
+prediction pkl ``WORK_DIR/det_predictions.pkl`` is written, the local
+metrics (core/det_metrics.py: nuScenes mAP or Waymo AP / APH) are logged
+when the ground truth covers every frame on the val split, and the
+dataset's submission is written: the nuScenes results JSON, or Waymo's
+Objects file (which needs waymo_open_dataset). On several processes rank
+0 gathers every process's frames first, so each frame counts once.
 """
 
 import argparse
@@ -94,6 +103,20 @@ def tta_dataset_cfg(ds_cfg, tta_cfg):
     return dict(ds_cfg, pipeline=pipe)
 
 
+DET_TYPES = ("VoxelNet", "PointPillars")
+
+
+def model_config(cfg):
+    """The config's model dict with its train_cfg and test_cfg, and for a
+    detector the voxel grid its neck is sized for."""
+    model_cfg = cfg.model.to_dict()
+    for key in ("train_cfg", "test_cfg"):
+        model_cfg.setdefault(key, dict(cfg.get(key) or {}))
+    if model_cfg["type"] in DET_TYPES:
+        model_cfg.setdefault("input_shape", input_shape_of(cfg))
+    return model_cfg
+
+
 def main(argv=None):
     """Run the evaluation; returns {"detections" (of the frames this
     process owns), "results" (the dataset's evaluation, None on the test
@@ -143,10 +166,7 @@ def _evaluate(args, rank, world, device):
         num_workers=cfg.data.get("workers_per_gpu", 4),
         worker_mode=default_worker_mode(cfg.data), drop_last=False)
 
-    model_cfg = cfg.model.to_dict()
-    for key in ("train_cfg", "test_cfg"):
-        model_cfg.setdefault(key, dict(cfg.get(key) or {}))
-    model = build_detector(model_cfg, device=device)
+    model = build_detector(model_config(cfg), device=device)
     state = TrainState(step=0, model=model, opt_state=None, generator=None)
     ckpt = args.checkpoint.rstrip("/")
     name = os.path.basename(ckpt)
@@ -157,6 +177,12 @@ def _evaluate(args, rank, world, device):
         load_checkpoint(ckpt, state, partial=True)
     logger.info("checkpoint loaded")
 
+    if cfg.model["type"] in DET_TYPES:
+        with loader:
+            dets = _detect(args, cfg, dataset, ds_cfg, loader, state,
+                           test_cfg, work_dir, logger)
+        return {"detections": dets, "results": None, "latencies": [],
+                "state": state}
     latencies = []
     with loader:
         dets = run_eval(model, state, loader, input_shape_of(cfg), dataset,
@@ -166,6 +192,60 @@ def _evaluate(args, rank, world, device):
                            testset=args.testset, logger=logger)
     return {"detections": dets, "results": res, "latencies": latencies,
             "state": state}
+
+
+def _detect(args, cfg, dataset, ds_cfg, loader, state, test_cfg, work_dir,
+            logger):
+    """The detection branch (module docstring) -> this process's
+    detections."""
+    from ..apis.det_eval import (frame_ground_truth, run_det_eval,
+                                 save_detections)
+    from ..parallel import dist
+
+    mine = run_det_eval(state.model, state, loader, input_shape_of(cfg),
+                        logger, test_cfg=test_cfg)
+    dets = mine
+    if dist.world_size() > 1:
+        parts = dist.gather_to_main(mine)
+        if not dist.is_main_process():
+            return mine
+        dets = {k: v for part in parts for k, v in part.items()}
+    os.makedirs(work_dir, exist_ok=True)
+    pkl = save_detections(dets, os.path.join(work_dir,
+                                             "det_predictions.pkl"))
+    logger.info(f"wrote {pkl} ({len(dets)} frames)")
+    ds_type = ds_cfg["type"]
+    if not args.testset and cfg.get("class_names"):
+        from ..core.det_metrics import (group_detections_by_class, nusc_map,
+                                        waymo_ap)
+
+        gts = frame_ground_truth(dataset, dets)
+        if gts and len(gts) == len(dets):
+            frames = group_detections_by_class(dets, gts,
+                                               list(cfg["class_names"]))
+            res = (nusc_map(frames) if ds_type == "SemanticNuscDataset"
+                   else waymo_ap(frames))
+            for k, v in res.items():
+                logger.info(f"det metric {k}: {v}")
+    if ds_type == "SemanticWaymoDataset":
+        from ..datasets.waymo.det_submission import write_detection_objects
+
+        try:
+            out = write_detection_objects(dets, work_dir)
+            logger.info(f"wrote {out} (evaluate with the official "
+                        "compute_detection_metrics_main)")
+        except ImportError as e:
+            logger.warning(f"no Waymo Objects file: {e}")
+    elif ds_type == "SemanticNuscDataset":
+        from ..datasets.nuscenes.det_submission import (
+            detections_to_nusc_json)
+
+        infos = {i["token"]: i for i in dataset._infos}
+        out = detections_to_nusc_json(
+            dets, infos, os.path.join(work_dir, "nusc_det_results.json"))
+        logger.info(f"wrote {out} (evaluate with "
+                    "nuscenes.eval.detection.evaluate)")
+    return dets
 
 
 if __name__ == "__main__":

@@ -17,7 +17,10 @@ OneCycle over every step, the config's gradient clip, a log line every
 checkpoint ``WORK_DIR/epoch_N`` after each epoch and ``latest.txt``.
 ``--resume_from`` alone resumes from ``latest.txt``, ``--resume_from N``
 from ``epoch_N``. ``--validate`` evaluates the val split after each epoch
-and logs its mIoU. ``--autoscale-lr`` scales ``lr_max`` by the cards
+and logs its mIoU (a detector's: its frames and valid boxes). Detection
+configs (VoxelNet, PointPillars) train the same way, their CenterPoint
+targets assigned by the train pipeline and carried to the card with the
+batch. ``--autoscale-lr`` scales ``lr_max`` by the cards
 used / 8. The device is ``cuda`` unless ``--device cpu`` is given, and
 the tool raises when there is no card.
 
@@ -164,7 +167,7 @@ def _train(args, rank, world, device, cards, hooks, timings):
     from ..datasets import SegDataLoader, build_dataset, default_worker_mode
     from ..models import build_detector
     from ..utils.config import Config
-    from .test import input_shape_of
+    from .test import DET_TYPES, input_shape_of, model_config
 
     cfg = Config.fromfile(args.config)
     work_dir = args.work_dir or cfg.get("work_dir", "./work_dirs/default")
@@ -185,10 +188,8 @@ def _train(args, rank, world, device, cards, hooks, timings):
                 load_hrnet_pretrained(state.model, pretrained, logger=logger)
                 return state
 
-        model_cfg = copy.deepcopy(cfg.model.to_dict())
-        for key in ("train_cfg", "test_cfg"):
-            model_cfg.setdefault(key, dict(cfg.get(key) or {}))
-        model = build_detector(model_cfg, device=device, seed=seed)
+        model = build_detector(copy.deepcopy(model_config(cfg)),
+                               device=device, seed=seed)
         dataset = build_dataset(cfg.data["train"].to_dict())
         logger.info(f"dataset: {len(dataset)} frames")
         cap = cfg.get("capacity", {})
@@ -227,9 +228,19 @@ def _train(args, rank, world, device, cards, hooks, timings):
                 drop_last=False)
 
             def val_fn(state, epoch):
+                test_cfg = dict(cfg.get("test_cfg") or {})
+                if cfg.model["type"] in DET_TYPES:
+                    from ..apis.det_eval import run_det_eval
+
+                    dets = run_det_eval(model, state, val_loader,
+                                        input_shape, logger,
+                                        test_cfg=test_cfg)
+                    logger.info(f"det eval: {len(dets)} frames, "
+                                f"{sum(int(d['valid'].sum()) for d in
+                                       dets.values())} boxes")
+                    return
                 dets = run_eval(model, state, val_loader, input_shape,
-                                val_dataset, logger,
-                                test_cfg=dict(cfg.get("test_cfg") or {}))
+                                val_dataset, logger, test_cfg=test_cfg)
                 evaluate_dataset(val_dataset, dets, logger=logger)
 
         try:

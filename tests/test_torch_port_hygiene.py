@@ -1,8 +1,9 @@
 """Hygiene of the port: lidarseg3d_torch (its solver, apis, losses,
 datasets, the train pipeline's augmentations, colour-space and JPEG
 modules, the nuScenes dataset, info builder and JPEG reader, SegNet's
-reader, head and segmentor, the multi-process runtime, and tools
-included), chip_smoke.py and the profile_*.py scripts import nothing of
+reader, head and segmentor, the multi-process runtime, the detection
+stack (CenterPoint's VoxelNet and PointPillars, their pipeline, metrics
+and writers), and tools included), chip_smoke.py and the profile_*.py scripts import nothing of
 JAX, Flax, optax, the JAX package or __graft_entry__, and no image
 library (cv2, PIL, imageio: the card's machine has none); the entry
 points run on cuda unless told otherwise; the constants the CPU
@@ -51,6 +52,17 @@ WAYMO_MODULES = ("datasets/waymo/__init__.py", "datasets/waymo/dataset.py",
                  "datasets/pipelines/instance_aug.py",
                  "models/img_heads/sc_conv.py", "models/img_heads/fcn_head.py",
                  "models/img_backbones/resnet.py")
+DET_MODULES = ("core/box_np_ops.py", "core/center_targets.py",
+               "core/det_metrics.py", "ops/box_ops.py",
+               "datasets/pipelines/det_pipeline.py",
+               "datasets/nuscenes/det_submission.py",
+               "datasets/waymo/det_submission.py",
+               "models/backbones/scn_det.py", "models/necks/__init__.py",
+               "models/necks/rpn.py", "models/bbox_heads/__init__.py",
+               "models/bbox_heads/center_head.py",
+               "models/readers/pillar_encoder.py",
+               "models/segmentors/voxelnet.py",
+               "models/segmentors/point_pillars.py", "apis/det_eval.py")
 SCRIPTS = ("chip_smoke.py", "profile_build.py", "profile_convs.py",
            "profile_merge.py")
 
@@ -76,7 +88,7 @@ def test_port_imports_no_jax():
     wanted = (set(TRAINING_MODULES) | set(EVAL_MODULES)
               | set(TRAIN_ENTRY_MODULES) | set(NUSC_MODULES)
               | set(SEGNET_MODULES) | set(POLAR_MODULES)
-              | set(DIST_MODULES) | set(WAYMO_MODULES))
+              | set(DIST_MODULES) | set(WAYMO_MODULES) | set(DET_MODULES))
     assert wanted <= listed, wanted - listed
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imports(p) if m.split(".")[0] in FORBIDDEN]

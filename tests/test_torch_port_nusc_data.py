@@ -153,10 +153,11 @@ def test_create_data_tool(tree, tmp_path, capsys):
     assert rep["lidarseg_records"] == rep["checked"] == 4
     assert "dry-data OK" in capsys.readouterr().out
     # the Waymo converter needs waymo_open_dataset, absent here;
-    # detection's ground-truth database is not ported
+    # a nuScenes tree holds no converted Waymo frames for the Waymo
+    # converter or the detection gt database
     with pytest.raises(ImportError, match="waymo_open_dataset"):
         create_data.main(["semanticwaymo", "--root", tree])
-    with pytest.raises(NotImplementedError, match="Waymo"):
+    with pytest.raises(FileNotFoundError, match="infos_train_01sweeps"):
         create_data.main(["waymo_gt_database", "--root", tree])
 
 
