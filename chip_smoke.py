@@ -204,6 +204,31 @@ exit):
      velocity config through tools.test;
   3t. det-pp: the Waymo PointPillars config through both tools, which
      launches no kernel of the port (held at 0);
+  3u. tsd: the published two-stage Waymo config
+     (configs/waymo/voxelnet/two_stage/*_freeze.py: the 3x VoxelNet as a
+     frozen first stage, 500 proposals a frame, the 5-point BEV extractor,
+     the RoI head of 2560 inputs and (256, 256) layers, DP_RATIO=0.3)
+     through tools.test on the det-wy tree's two val frames (BN calibrated
+     on frame 0; launches a frame 21 / 0 / 4 / 4 / 2 as det-wy's; outputs,
+     a mini cut card vs CPU) with a frame's first-stage forward,
+     proposals, second stage and predict timed alone, then through
+     tools.train at B=4 from a checkpoint whose first-stage head proposes
+     fixed pedestrian boxes over a tree copy with a pedestrian at the
+     origin of every train frame (so the RoI head's regression branch gets
+     a gradient): launches a step as a frame's (no dX, dW or inverse
+     rulebook under the frozen first stage), every first-stage parameter
+     its decay-only update and its BN statistics bit for bit, a resume
+     equal to epoch_2, the step times and the peak memory;
+  3v. the tools (reads 3r's and 3s's outputs): tools.nusc_tracking on
+     3r's detection JSON, the Waymo tracker (tools.waymo_tracking.track)
+     on det-wy-velo's prediction pkl over the tree's moving vehicle poses
+     (the metrics_pb2 writer needs waymo_open_dataset: not run),
+     tools.simple_inference_waymo on a val frame through the 3x config
+     (boxes against 3s's tools.test), tools.single_inference on a
+     published-size scan through the SDSeg3D SemanticKITTI config (labels
+     against tools.test's), and the C voxelizer against the numpy path
+     byte for byte, each timed per frame at the published Waymo and
+     SemanticKITTI sizes;
   4. hold each kernel against its plain version on the card at each main
      path's shapes, from a real scan of that path: the rulebook conv in
      fp32 and bf16 (stage-1 subm, stage-1->2 strided, stage-4 subm; and as
@@ -263,9 +288,9 @@ exit):
      (0, 1, 1) and the inverse with sx = 1 on both kinds; and the
      single-cell lookup at the semkitti and train heads' points (timed)
      and with queries outside every face; times are CUDA-event means of
-     back-to-back calls
+     10 back-to-back calls
      after warm-up, device-only means (the profiler's summed kernel
-     durations) and, for the pack and the merge, the wrapper's host time
+     durations over 5 calls) and, for the pack and the merge, the wrapper's host time
      per call (back-to-back calls, no synchronisation); the pack row also
      times torch.cumsum of the bitmap and the merge row
      torch.searchsorted, partial yardsticks that give the rank field only;
@@ -273,8 +298,8 @@ exit):
      a TTA path's scan is one frame's variant rows) and one train step of
      each training path (device
      busy share and the kernels that take the time), and the
-     structures+rulebooks part of one scan of each inference path (its
-     device kernels and launches beside the count before the fused
+     structures+rulebooks part of one scan of semkitti, semnusc and eval
+     (its device kernels and launches beside the count before the fused
      rulebook kernels, and the host operations that take its time);
      print the card line, one JSON line of the kernels, then the result
      line.
@@ -587,7 +612,7 @@ def wrappers():
             "rank_pack": pack_rank_table, "merge_lookup": merge_cells}
 
 
-def cuda_time(fn, reps=20, warmup=3):
+def cuda_time(fn, reps=10, warmup=3):
     """Mean milliseconds of fn() over ``reps`` launches (CUDA events)."""
     import torch
 
@@ -606,12 +631,39 @@ def cuda_time(fn, reps=20, warmup=3):
 PROFILE_TRIES = 8
 
 
-def device_ms(fn, reps=10):
+# the utility records prof.events() leaves out (torch.autograd.profiler
+# _filter_name)
+PROFILER_UTILITY = frozenset((
+    "[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+    "profiler::_record_function_enter_new",
+    "profiler::_record_function_exit", "aten::is_leaf", "aten::output_nr",
+    "aten::_version"))
+
+
+def activities(prof):
+    """[(start us, end us, name, on the device)] of the activities a
+    profiler session recorded, the events ``prof.events()`` gives, read
+    from its raw kineto events: building the event tree took seconds for
+    a train step's ~50,000 operations, more than the step's own
+    profile."""
+    from torch.autograd import DeviceType
+
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        start = e.start_ns()
+        if (start <= 0 or e.name() in PROFILER_UTILITY
+                or getattr(e, "is_hidden_event", lambda: False)()):
+            continue
+        out.append((start / 1e3, (start + e.duration_ns()) / 1e3, e.name(),
+                    e.device_type() == DeviceType.CUDA))
+    return out
+
+
+def device_ms(fn, reps=5):
     """Mean device milliseconds per fn() call: the summed durations of the
     device activities fn starts (torch.profiler), without the host-side
     gaps between launches that ``cuda_time`` also counts."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -628,10 +680,9 @@ def device_ms(fn, reps=10):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        kern = [(a, b) for a, b, _, dev in activities(prof) if dev]
         if kern:
-            sums.append(sum(e.time_range.end - e.time_range.start
-                            for e in kern) / reps / 1e3)
+            sums.append(sum(b - a for a, b in kern) / reps / 1e3)
             if len(sums) == 2:
                 return max(sums)
         else:
@@ -3645,8 +3696,8 @@ def ddp_rank_step(rank, job):
 
 def ddp_rank_train(rank, job):
     """Phase 3n (c) on one rank: tools.train on the published config
-    (--dist_* flags, card 0 shared), one epoch of 2 steps, then a resume
-    for a second; each step's launches held to TRAIN_ENTRY's, every
+    (--dist_* flags, card 0 shared), one epoch of ``train_steps`` steps,
+    then a resume for a second; each step's launches held to TRAIN_ENTRY's, every
     parameter outside the frozen stages moved, the resumed state equal to
     the checkpoint. -> files, launches, losses, digests."""
     from lidarseg3d_torch.apis.train import TrainerHook
@@ -4173,17 +4224,16 @@ def profile_call(fn, what, top=12, host_top=0):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = prof.events()
-    kern = [e for e in events if e.device_type == DeviceType.CUDA]
+    events = activities(prof)
+    kern = [(a, b, name) for a, b, name, dev in events if dev]
     if not kern:
         log("  profile: no device activity recorded; busy share not measured")
         return None, {}
-    t0 = min(e.time_range.start for e in events)
-    t1 = max(e.time_range.end for e in events)
+    t0 = min(a for a, _, _, _ in events)
+    t1 = max(b for _, b, _, _ in events)
     busy, cur_s, cur_e = 0.0, None, None
     per_name = {}
-    for s, e, name in sorted((k.time_range.start, k.time_range.end, k.name)
-                             for k in kern):
+    for s, e, name in sorted(kern):
         tot, cnt = per_name.get(name, (0.0, 0))
         per_name[name] = (tot + (e - s), cnt + 1)
         if cur_e is None or s > cur_e:
@@ -4512,7 +4562,9 @@ def det_eval(phase, cfg_path, tmp, per_frame, card_vs_cpu=True,
     if card_vs_cpu:
         res["card_vs_cpu"] = det_card_vs_cpu(cfg_path, tmp, phase)
     return dict(model=model, ex0=ex, launches=launches, result=res,
-                no_profile=not profile, no_structures=True)
+                no_profile=not profile, no_structures=True, work=work,
+                tmp=tmp, cfg=cfg, cfg_path=cfg_path,
+                detections=out["detections"])
 
 
 def det_train(phase, cfg_path, tmp, per_step, profile=False):
@@ -4660,6 +4712,501 @@ def run_det_pp():
             "det_pp_train": det_train("3t", DET_PP, tmp, DET_NONE)}
 
 
+# phase 3u: two-stage CenterPoint at its published Waymo config (the 3x
+# VoxelNet frozen as its first stage, NMS_POST_MAXSIZE=500, the 5-point BEV
+# extractor, the RoI head of 2560 -> 256 -> 256 and two (256, 256)
+# branches, DP_RATIO=0.3) through tools.test on the det-wy tree's two val
+# frames (BN calibrated on frame 0) and tools.train at B=4. The frozen
+# first stage runs without autograd, so a frame and a step launch what a
+# det-wy frame does (no dX, dW or inverse rulebook). The step starts from
+# a checkpoint whose first stage is a fixed proposer (its head's output
+# convs zero, their biases a 0.8 x 0.8 x 1.8 m pedestrian, yaw 0, in 100
+# cells of one BEV row shifted to start at the origin: rows of touching
+# boxes, 0 m to 79.2 m along x) over a copy of the tree that puts a
+# pedestrian of that size at the origin of every train frame: a global
+# rotation, flip or scaling keeps it there, so a RoI overlaps it (IoU >
+# 0.55 at any rotation) and the regression branch has a foreground row
+TSD = ("configs/waymo/voxelnet/two_stage/waymo_centerpoint_voxelnet_"
+       "two_stage_bev_5point_ft_6epoch_freeze.py")
+TSD_PED = (0.8, 0.8, 1.8)  # the origin pedestrian (length, width, height)
+TSD_SHIFT = 94  # BEV cells from the grid's corner to the origin (75.2 / 0.8)
+_TSD_ROOT = []
+
+
+def tsd_tree(tmp):
+    """A copy of the det-wy tree (det_tree_wy) whose train frames hold a
+    pedestrian at the origin with 40 returns inside, linked at data/Waymo
+    under ``tmp``; -> seconds."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    if not _DET_WY_ROOT:
+        det_tree_wy(tempfile.mkdtemp(prefix="det_wy_src_"))
+    src = _DET_WY_ROOT[0]
+    root = os.path.join(tempfile.mkdtemp(prefix="tsd_tree_"), "waymo")
+    shutil.copytree(src, root)
+    _TSD_ROOT.append(root)
+    for name in os.listdir(root):  # the infos name their frames by path
+        if name.startswith("infos_"):
+            path = os.path.join(root, name)
+            with open(path, "rb") as f:
+                infos = pickle.load(f)
+            for info in infos:
+                info["path"] = info["path"].replace(src, root)
+                for sw in info.get("sweeps", []):
+                    sw["path"] = sw["path"].replace(src, root)
+            with open(path, "wb") as f:
+                pickle.dump(infos, f)
+    rng = np.random.default_rng(22)
+    l, w, h = TSD_PED
+    for name in sorted(os.listdir(os.path.join(root, "train_frames"))):
+        path = os.path.join(root, "train_frames", name)
+        with open(path, "rb") as f:
+            obj = pickle.load(f)
+        lid, anns = obj["lidars"], obj["annotations"]
+        xyz = rng.uniform(-0.45, 0.45, (40, 3)) * (l, w, h) + (0, 0, h / 2)
+        lid["points_xyz"] = np.concatenate([lid["points_xyz"], xyz]).astype(
+            lid["points_xyz"].dtype)
+        lid["points_feature"] = np.concatenate([
+            lid["points_feature"], np.full((40, lid["points_feature"]
+                                            .shape[1]), 0.5)]).astype(
+            lid["points_feature"].dtype)
+        if "points_cp" in lid:
+            lid["points_cp"] = np.concatenate([
+                lid["points_cp"], np.zeros((40, lid["points_cp"].shape[1]),
+                                           lid["points_cp"].dtype)])
+        box = np.array([[0.0, 0.0, h / 2, l, w, h, 0.0]], np.float32)
+        anns["gt_boxes"] = np.concatenate([anns["gt_boxes"], box])
+        anns["gt_names"] = np.concatenate([anns["gt_names"],
+                                           np.array(["PEDESTRIAN"], object)])
+        anns["gt_num_points"] = np.concatenate([anns["gt_num_points"],
+                                                np.array([40], np.int32)])
+        with open(path, "wb") as f:
+            pickle.dump(obj, f)
+    os.makedirs(os.path.join(tmp, "data"), exist_ok=True)
+    os.symlink(root, os.path.join(tmp, "data/Waymo"))
+    return time.perf_counter() - t0
+
+
+def tsd_fixed_proposer(model):
+    """Make the first stage's head the fixed proposer of the module notes
+    above (weights of the model's own layers; the model is unchanged)."""
+    import math
+
+    import torch
+    from lidarseg3d_torch.models.bbox_heads.center_head import SepHead
+
+    l, w, h = TSD_PED
+    bias = {"hm": [-5.0, 0.0, -5.0], "reg": [TSD_SHIFT, TSD_SHIFT],
+            "height": [h / 2], "dim": [math.log(l), math.log(w), math.log(h)],
+            "rot": [0.0, 1.0]}
+    heads = [m for m in model.single_det.head_mod.modules()
+             if isinstance(m, SepHead)]
+    with torch.no_grad():
+        for sep in heads:
+            for name, (_, out) in sep.heads.items():
+                out.weight.zero_()
+                out.bias.copy_(torch.tensor(bias[name]))
+    return len(heads)
+
+
+def tsd_split_ms(model, ex, reps=4):
+    """ms of a frame's first-stage forward, proposals, second stage and
+    predict, each alone (host clock to a synchronisation)."""
+    import torch
+
+    out = {k: [] for k in ("forward", "proposals", "second_stage",
+                           "predict")}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out[key].append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    m = model.eval()
+    with torch.inference_mode():
+        for _ in range(reps):
+            rets, bat = timed("forward", lambda: m.single_det(ex))
+            props = timed("proposals", lambda: m.proposals(rets, bat))
+            r = timed("second_stage", lambda: m.refine(bat, props))
+            timed("predict", lambda: m.predict(r, bat))
+    return out
+
+
+def tsd_train(tmp, per_step):
+    """The published two-stage config through tools.train at B=4 from the
+    fixed-proposer checkpoint (epoch_0), 2 epochs of one step, then a
+    resume: each step's launches held to ``per_step``; the RoI head's
+    regression branch gets a non-zero gradient in some step; every
+    first-stage gradient is 0, its parameters after each step equal the
+    decay-only update p - lr * wd * p and its BN statistics stay bit for
+    bit; the resumed state equals epoch_2's checkpoint."""
+    cfg_path = with_loader(TSD, os.path.join(tmp, os.path.basename(TSD)),
+                           "thread")
+    import numpy as np
+    import torch
+    from lidarseg3d_torch.apis import train as tr
+    from lidarseg3d_torch.datasets import SegDataLoader
+    from lidarseg3d_torch.models import build_detector
+    from lidarseg3d_torch.solver.optim import build_one_cycle_optimizer
+    from lidarseg3d_torch.tools import train as tool
+    from lidarseg3d_torch.tools.test import input_shape_of, model_config
+    from lidarseg3d_torch.utils.config import Config
+
+    cfg = Config.fromfile(cfg_path)
+    work = os.path.join(tmp, "train_tsd")
+    model = build_detector(model_config(cfg), device=DEV)
+    nheads = tsd_fixed_proposer(model)
+    opt, _ = build_one_cycle_optimizer(dict(cfg.optimizer),
+                                       dict(cfg.lr_config), 2)
+    tr.save_checkpoint(work, tr.create_train_state(model, opt), 0)
+    del model
+    wd = float(cfg.optimizer.wd)
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+
+    class Check(tr.TrainerHook):
+        def before_run(self, state, loop):
+            self.lr_fn = loop["lr_fn"]
+            m = state.model
+            self.first = {k: p.detach().clone() for k, p in
+                          m.single_det.named_parameters()}
+            self.stats = {k: v.clone() for k, v in
+                          m.single_det.state_dict().items()
+                          if k.endswith(("running_mean", "running_var"))}
+            layers, out = m.roi_head_mod.reg
+            self.reg = [p for lin, bn in layers for p in (
+                *lin.parameters(), *bn.parameters())] + list(
+                out.parameters())
+            self.reg_grad, self.reg_loss, self.decay_err = [], [], 0.0
+
+        def after_iter(self, state, ldict, global_step):
+            m = state.model
+            self.reg_grad.append(max(float(p.grad.abs().max())
+                                     for p in self.reg))
+            self.reg_loss.append(float(ldict["rcnn_loss_reg"]))
+            lr = float(self.lr_fn(int(state.opt_state.count) - 1))
+            for k, p in m.single_det.named_parameters():
+                if p.grad is None or p.grad.any():
+                    raise SystemExit(f"phase 3u step {global_step}: the "
+                                     f"frozen {k} has a gradient")
+                prev = self.first[k]
+                want = prev + (prev * wd) * (-lr)
+                err = float(((p.detach() - want).abs()
+                             / (1e-7 + want.abs())).max())
+                self.decay_err = max(self.decay_err, err)
+                if err > 1e-5:
+                    raise SystemExit(f"phase 3u step {global_step}: the "
+                                     f"frozen {k} is not its decay-only "
+                                     f"update ({err:.2e} relative)")
+                self.first[k] = p.detach().clone()
+            sd = m.single_det.state_dict()
+            moved = [k for k, v in self.stats.items()
+                     if not torch.equal(sd[k], v)]
+            if moved:
+                raise SystemExit(f"phase 3u: frozen BN statistics moved: "
+                                 f"{moved[:3]}")
+
+    record, timings, check = {}, [], Check()
+    args = [cfg_path, "--work_dir", work, "--max_steps_per_epoch", "1",
+            "--device", DEV]
+    torch.cuda.reset_peak_memory_stats()
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        tool.main(args + ["--resume_from", "0", "--total_epochs", "2"],
+                  hooks=[check, train_entry_hook(ws, per_step, record, "3u",
+                                                 zero_grad_ok=True)],
+                  timings=timings)
+        launches = {k: w.launches for k, w in ws.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        files = sorted(os.listdir(work))
+        if files != ["epoch_0", "epoch_1", "epoch_2", "latest.txt",
+                     "train.log"]:
+            raise SystemExit(f"phase 3u: wrote {files}")
+        if max(check.reg_grad) == 0.0:
+            raise SystemExit("phase 3u: the RoI head's regression branch "
+                             f"got no gradient (rcnn_loss_reg "
+                             f"{check.reg_loss})")
+
+        class Resume(tr.TrainerHook):
+            def before_run(self, state, loop):
+                self.diff = state_equals_checkpoint(
+                    state, os.path.join(work, "epoch_2"))
+                self.start = (int(state.step), int(state.opt_state.count))
+
+            def after_run(self, state):
+                self.model, self.state = state.model, state
+
+        resume = Resume()
+        tool.main(args + ["--resume_from", "--total_epochs", "3"],
+                  hooks=[resume, train_entry_hook(ws, per_step, {}, "3u",
+                                                  zero_grad_ok=True)])
+        if resume.diff or resume.start != (2, 2):
+            raise SystemExit(f"phase 3u resume: differs in "
+                             f"{resume.diff[:5]}, starts at {resume.start}")
+        ds = dataset_in(cfg, "train", tmp)
+        with SegDataLoader(ds, cfg.data.samples_per_gpu, **caps(cfg),
+                           shuffle=False, num_workers=1) as loader:
+            ex = tr.example_to_device(next(loader.epoch(0)), DEV)
+        ex["input_shape"] = input_shape_of(cfg)
+    finally:
+        os.chdir(cwd)
+    steps = [round(x["step_s"] * 1e3, 2) for x in timings]
+    log(f"  two-stage at B=4 ({nheads} first-stage head(s) fixed): 2 steps, "
+        f"launches {launches} (per step {per_step}); RoI regression "
+        f"gradient max {[f'{g:.3e}' for g in check.reg_grad]}, "
+        f"rcnn_loss_reg {[round(x, 4) for x in check.reg_loss]}; frozen "
+        f"first stage: gradients 0, decay-only update within "
+        f"{check.decay_err:.2e}, BN statistics bit for bit; resume equal "
+        f"to epoch_2; step ms {steps}, loader wait ms "
+        f"{[round(x['data_s'] * 1e3, 2) for x in timings]}; peak memory "
+        f"{peak:.2f} GiB")
+    for step, vals in record["losses"]:
+        log(f"  step {step}: " + ", ".join(f"{k} {v:.4f}"
+                                           for k, v in vals.items()))
+    # phase 5 profiles a step of the resumed state
+    opt, _ = build_one_cycle_optimizer(
+        dict(cfg.optimizer), dict(cfg.lr_config), 3,
+        grad_clip=cfg.optimizer_config.grad_clip.max_norm)
+    return dict(model=resume.model, ex0=ex, launches=launches,
+                state=resume.state, step=tr.make_train_step(
+                    resume.model, opt, input_shape_of(cfg)),
+                result=dict(step_ms=steps, peak_gib=peak,
+                            reg_grad_max=check.reg_grad,
+                            rcnn_loss_reg=check.reg_loss,
+                            decay_only_max_rel_err=check.decay_err,
+                            moved=record["moved"]))
+
+
+def run_tsd():
+    """Phase 3u (module notes above)."""
+    import tempfile
+
+    import numpy as np
+
+    tmp = tempfile.mkdtemp(prefix="tsd_")
+    secs = tsd_tree(tmp)
+    log(f"  tree: the det-wy tree with a pedestrian at the origin of each "
+        f"train frame, in {secs:.1f} s")
+    ev = det_eval("3u", TSD, tmp, DET_PER_FRAME, profile=True)
+    split = tsd_split_ms(ev["model"], ev["ex0"])
+    log("  a frame alone, ms: " + "; ".join(
+        f"{k} {[round(x, 2) for x in v]}" for k, v in split.items())
+        + " (first-stage forward, its decode at 500 rows, the extractor "
+        "and RoI head, predict)")
+    ev["result"]["split_ms"] = split
+    ev["result"]["split_ms_mean"] = {k: float(np.mean(v[1:]))
+                                     for k, v in split.items()}
+    return {"tsd_eval": ev, "tsd_train": tsd_train(tmp, DET_PER_FRAME)}
+
+
+# phase 3v: the tools around detection and single frames: the nuScenes
+# tracker on the detection JSON 3r's tools.test wrote, the Waymo tracker
+# on det-wy-velo's det_predictions.pkl (3s) over the tree's moving vehicle
+# poses (stopping before the metrics_pb2 writer, which needs
+# waymo_open_dataset), tools.single_inference on a published-size scan
+# through the published SemanticKITTI SDSeg3D config (its labels against
+# tools.test's on the same scan), tools.simple_inference_waymo on a frame
+# of the det-wy tree through the 3x config (its boxes against 3s's
+# tools.test), and the C voxelizer against numpy, byte for byte, both
+# timed per frame at the published Waymo and SemanticKITTI sizes
+VOX_REPS = 5
+
+
+def voxelizer_ms(name, points, vg_cfg):
+    """The C voxelizer and the numpy path on one frame: byte for byte, and
+    their median ms over VOX_REPS calls each."""
+    import numpy as np
+    from lidarseg3d_torch.core import native_voxelize
+    from lidarseg3d_torch.core import voxelize as vox
+
+    mv = vg_cfg["max_voxel_num"]
+    mv = mv[1] if isinstance(mv, (list, tuple)) else mv
+    args = (points, vg_cfg["voxel_size"], vg_cfg["range"],
+            vg_cfg["max_points_in_voxel"], mv)
+    grid = vox.compute_grid_size(vg_cfg["range"], vg_cfg["voxel_size"])
+    times = {}
+    for key, fn in (("c", lambda: native_voxelize.points_to_voxel_native(
+            *args, grid)), ("numpy", lambda: vox.points_to_voxel_numpy(
+                *args))):
+        out, ts = None, []
+        for _ in range(VOX_REPS):
+            t0 = time.perf_counter()
+            out = fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        times[key] = (out, float(np.median(ts)))
+    a, b = times["c"][0], times["numpy"][0]
+    if not all(x.dtype == y.dtype and x.shape == y.shape
+               and x.tobytes() == y.tobytes() for x, y in zip(a, b)):
+        raise SystemExit(f"phase 3v: the C voxelizer differs from numpy on "
+                         f"{name}")
+    res = dict(points=len(points), voxels=len(a[0]), c_ms=times["c"][1],
+               numpy_ms=times["numpy"][1],
+               speedup=times["numpy"][1] / times["c"][1])
+    log(f"  voxelizer {name}: {len(points)} points -> {len(a[0])} voxels, "
+        f"byte for byte; C {res['c_ms']:.2f} ms, numpy "
+        f"{res['numpy_ms']:.2f} ms a frame (median of {VOX_REPS}; "
+        f"{res['speedup']:.1f}x)")
+    return res
+
+
+def run_frame_tools(runs):
+    """Phase 3v (module notes above)."""
+    import json
+    import pickle
+    import tempfile
+
+    import numpy as np
+    from lidarseg3d_torch.synthetic import write_semantickitti_tree
+    from lidarseg3d_torch.tools import (nusc_tracking, simple_inference_waymo,
+                                        single_inference, waymo_tracking)
+    from lidarseg3d_torch.tools import test as test_tool
+    from lidarseg3d_torch.utils.config import Config
+
+    need = ("det_nu_eval", "det_wy_eval", "det_wy_velo_eval")
+    if any(k not in runs for k in need):
+        raise SystemExit("phase 3v reads the outputs of phases 3r and 3s: "
+                         "run them with it")
+    res = {}
+    tmp = tempfile.mkdtemp(prefix="frame_tools_")
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    # the nuScenes tracker on 3r's detection JSON
+    nu = runs["det_nu_eval"]
+    info = os.path.join(nu["tmp"], nu["cfg"].data.val.info_path)
+    t0 = time.perf_counter()
+    path = nusc_tracking.main([
+        "--checkpoint", os.path.join(nu["work"], "nusc_det_results.json"),
+        "--info_path", info, "--work_dir", os.path.join(tmp, "nusc_track")])
+    secs = time.perf_counter() - t0
+    with open(path) as f:
+        tracks = json.load(f)["results"]
+    ids = [a["tracking_id"] for r in tracks.values() for a in r]
+    if len(tracks) != nu["result"]["frames"] or not ids:
+        raise SystemExit(f"phase 3v: nusc tracking gave {len(tracks)} "
+                         f"frames, {len(ids)} tracks")
+    res["nusc_tracking"] = dict(frames=len(tracks), boxes=len(ids),
+                                tracks=len(set(ids)), seconds=secs)
+    log(f"  nusc_tracking: {len(tracks)} frames, {len(ids)} tracked boxes "
+        f"in {len(set(ids))} tracks, {secs * 1e3:.1f} ms")
+    # the Waymo tracker on det-wy-velo's prediction pkl
+    wv = runs["det_wy_velo_eval"]
+    with open(os.path.join(wv["work"], "det_predictions.pkl"), "rb") as f:
+        preds = pickle.load(f)
+    info = os.path.join(wv["tmp"], wv["cfg"].data.val.info_path)
+    with open(info, "rb") as f:
+        infos = pickle.load(f)
+    t0 = time.perf_counter()
+    got = waymo_tracking.track(
+        preds, infos, {"VEHICLE": 0.8, "PEDESTRIAN": 0.4, "CYCLIST": 0.6},
+        info_dir=os.path.dirname(info))
+    secs = time.perf_counter() - t0
+    n = sum(len(g["tracking_ids"]) for g in got.values())
+    poses = [waymo_tracking.load_pose_ts(i, os.path.dirname(info))[0]
+             for i in infos]
+    if len(got) != len(preds) or np.allclose(poses[0], np.eye(4)) or not \
+            all(np.isfinite(g["global_box3d"]).all() for g in got.values()):
+        raise SystemExit("phase 3v: the Waymo tracker's frames or global "
+                         "boxes are wrong")
+    res["waymo_tracking"] = dict(frames=len(got), boxes=n, seconds=secs)
+    log(f"  waymo_tracking (velo predictions, moving poses): {len(got)} "
+        f"frames, {n} active tracked boxes, {secs * 1e3:.1f} ms (the "
+        "metrics_pb2 writer needs waymo_open_dataset: not run)")
+    # simple_inference_waymo on frame 0 of 3s's val split, 3x config
+    wy = runs["det_wy_eval"]
+    with open(os.path.join(wy["tmp"], wy["cfg"].data.val.info_path),
+              "rb") as f:
+        info0 = pickle.load(f)[0]
+    frame = os.path.join(wy["tmp"], info0["path"]) \
+        if not os.path.isabs(info0["path"]) else info0["path"]
+    t0 = time.perf_counter()
+    dets = simple_inference_waymo.main([
+        wy["cfg_path"], "--checkpoint", wy["work"], "--frame", frame,
+        "--device", DEV, "--visual", os.path.join(tmp, "bev.png")])
+    secs = time.perf_counter() - t0
+    want = wy["detections"][info0["token"]]
+    v = want["valid"]
+    err = max(float(np.abs(dets[k] - want[k][v]).max()) if v.any() else 0.0
+              for k in ("box3d_lidar", "scores"))
+    if not np.array_equal(dets["label_preds"], want["label_preds"][v]) or \
+            err > TOL_DET:
+        raise SystemExit(f"phase 3v: simple_inference_waymo differs from "
+                         f"tools.test ({len(dets['scores'])} vs "
+                         f"{int(v.sum())} boxes, {err:.2e})")
+    res["simple_inference_waymo"] = dict(boxes=len(dets["scores"]),
+                                         max_abs_err=err, seconds=secs)
+    log(f"  simple_inference_waymo: {len(dets['scores'])} boxes, equal to "
+        f"tools.test's within {err:.2e}; {secs:.2f} s with the model's "
+        "build and load")
+    # single_inference on a published-size SemanticKITTI scan, SDSeg3D
+    cfg_path = with_loader(EVAL_SD["config"], os.path.join(
+        tmp, "sdseg.py"), "thread")
+    cfg = Config.fromfile(cfg_path)
+    root = os.path.join(tmp, cfg.data_root)
+    write_semantickitti_tree(root, sequences=("08",), frames=1,
+                             points=(120000, 125000), seed=23,
+                             image_hw=(376, 1241), max_range=75.0)
+    ds = dataset_in(cfg, "val", tmp)
+    from lidarseg3d_torch.apis.train import TrainState, save_checkpoint
+    from lidarseg3d_torch.models import build_detector
+
+    model = build_detector(test_tool.model_config(cfg), device=DEV)
+    calibrate_bn(model, first_example(ds, caps(cfg),
+                                      test_tool.input_shape_of(cfg), DEV))
+    work = os.path.join(tmp, "work_sdseg")
+    save_checkpoint(work, TrainState(0, model, None, None), 1)
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        want = test_tool.main([cfg_path, "--checkpoint", work, "--device",
+                               DEV, "--work_dir", work])["detections"]
+    finally:
+        os.chdir(cwd)
+    (token, pred), = want.items()
+    scan = next(os.path.join(dp, f) for dp, _, fs in os.walk(root)
+                for f in fs if f.endswith(".bin")
+                and os.path.join(dp, f).endswith(token))
+    t0 = time.perf_counter()
+    labels = single_inference.main([cfg_path, "--checkpoint", work,
+                                    "--scan", scan, "--device", DEV])
+    secs = time.perf_counter() - t0
+    agree = float((labels == pred["pred_point_sem_labels"]).mean())
+    if labels.shape != pred["pred_point_sem_labels"].shape or \
+            agree < MIN_LABEL_AGREE or labels.max() >= EVAL_SD["ncls"]:
+        raise SystemExit(f"phase 3v: single_inference labels agree with "
+                         f"tools.test on {agree:.6f} of the points")
+    res["single_inference"] = dict(points=len(labels), agree=agree,
+                                   classes=int(len(np.unique(labels))),
+                                   seconds=secs)
+    log(f"  single_inference (SDSeg3D, {len(labels)} points): "
+        f"{len(np.unique(labels))} classes, labels equal to tools.test's on "
+        f"{agree:.6f} of the points; {secs:.2f} s with the model's build "
+        "and load")
+    # the C voxelizer at the published sizes
+    with open(frame, "rb") as f:
+        lid = pickle.load(f)["lidars"]
+    wpts = np.concatenate([lid["points_xyz"], lid["points_feature"]],
+                          1).astype(np.float32)[:, :5]
+    res["voxelizer_waymo"] = voxelizer_ms(
+        "Waymo 3x (0.1 x 0.1 x 0.15 m, 150,000 voxels)", wpts,
+        wy["cfg"].voxel_generator)
+    kpts = np.fromfile(scan, np.float32).reshape(-1, 4)
+    res["voxelizer_semkitti"] = voxelizer_ms(
+        "SemanticKITTI SDSeg3D", kpts, cfg.voxel_generator)
+    return {"frame_tools": dict(result=res, no_profile=True, launches={
+        k: w.launches for k, w in ws.items()})}
+
+
 def det_rulebooks(b):
     """The rulebooks of SpMiddleResNetFHD.structures (transposed): (name,
     the structure whose rows it fills, the stage whose table it reads,
@@ -4683,9 +5230,10 @@ def det_rulebooks(b):
 
 
 def check_det_paths(report, runs, gen):
-    """Phase 4's rows of the detection paths (3r, 3s): from a frame of
-    det-nu-eval (120,000 voxels, 10 sweeps) and a B=4 batch of det-wy-train
-    (4 x 150,000 rows), the input conv 5->16 (fp32), the stage-1 subm
+    """Phase 4's rows of the detection paths (3r, 3s; 3u's step, whose
+    first stage has det-wy-train's shapes, when 3s did not run): from a
+    frame of det-nu-eval (120,000 voxels, 10 sweeps) and a B=4 batch of
+    det-wy-train (4 x 150,000 rows), the input conv 5->16 (fp32), the stage-1 subm
     16->16, the stride-2 conv 16->32, stage 4's strided conv 64->128
     (padding (0, 1, 1)) and the extra (3, 1, 1) stride-(2, 1, 1) conv
     128->128; at B=4 the stage-1 dX 16->16 and dW (600,000 rows) and the
@@ -4696,10 +5244,14 @@ def check_det_paths(report, runs, gen):
     from lidarseg3d_torch.ops import coords as co
     from lidarseg3d_torch.ops import sparse as sp
 
-    for name in ("det_nu_eval", "det_wy_train"):
+    # the two-stage step's first stage has det-wy-train's shapes
+    names = ("det_nu_eval", "det_wy_train" if "det_wy_train" in runs
+             else "tsd_train")
+    for name in names:
         if name not in runs:
             continue
         m, ex = runs[name]["model"], runs[name]["ex0"]
+        m = getattr(m, "single_det", m)
         with torch.no_grad():
             feats = m.reader_mod(ex["voxels"], ex["num_points"],
                                  ex["coordinates"])
@@ -4728,7 +5280,7 @@ def check_det_paths(report, runs, gen):
         f128 = torch.rand(B, V4, 128, generator=gen).to(DEV)
         check_conv(report, f"{name} extra (3,1,1)/(2,1,1) 128->128 B={B} "
                    f"{V4}->{V5}", f128, b["down5"], 128, 128, gen)
-        if name == "det_wy_train":
+        if name != "det_nu_eval":
             check_conv(report, f"dX of subm 16->16 {name} B={B} V={V}",
                        f16, b["subm1"], 16, 16, gen, dx=True)
             check_dw(report, f"{name} subm 16->16 B={B} V={V}", f16,
@@ -4755,7 +5307,8 @@ def check_det_paths(report, runs, gen):
 
 
 PHASES = ("3", "3b", "3c", "3d", "3e", "3f", "3g", "3h", "3i", "3j", "3k",
-          "3l", "3m", "3n", "3o", "3p", "3q", "3r", "3s", "3t", "4", "5")
+          "3l", "3m", "3n", "3o", "3p", "3q", "3r", "3s", "3t", "3u", "3v",
+          "4", "5")
 
 
 def parse_args(argv):
@@ -4871,6 +5424,12 @@ def main(argv=None):
          "velocity config evaluated)", run_det_wy),
         ("3t", "main path det-pp (published Waymo PointPillars config "
          "through both tools: no kernel of the port)", run_det_pp),
+        ("3u", "main path tsd (published two-stage Waymo CenterPoint config "
+         "through tools.test, then tools.train at B=4 with the first stage "
+         "frozen)", run_tsd),
+        ("3v", "the tools: nuScenes and Waymo tracking, single_inference, "
+         "simple_inference_waymo, the C voxelizer",
+         lambda: run_frame_tools(runs)),
     ]
     for ph, text, fn in steps:
         if ph in want:
@@ -4893,10 +5452,11 @@ def main(argv=None):
               "and each inference path's structures+rulebooks build")
         for name, r in runs.items():
             if "model" not in r or r.get("no_profile"):
-                # 3n ran in processes of its own; of 3r-3t, det_nu_eval and
-                # det_wy_train are profiled
+                # 3n ran in processes of its own; of 3r-3u, det_nu_eval,
+                # det_wy_train, tsd_eval and tsd_train are profiled
                 continue
             log(f"  {name}:")
+            t_path = time.perf_counter()
             training = "step" in r
             det = r.get("no_structures", False)
             if training:
@@ -4919,9 +5479,12 @@ def main(argv=None):
                 r["result"]["kernels_by_name"] = {
                     k: [us / 1e3, n] for k, (us, n) in sorted(
                         per_name.items(), key=lambda kv: -kv[1][0])[:12]}
-            elif not training:
+            elif name in BUILD_KERNELS_BEFORE:
+                # the build's profile where a count before the fused
+                # rulebook kernels exists to set it beside
                 log(f"  {name}, structures+rulebooks of one scan:")
                 r["result"]["structures"] = profile_structures(name, r)
+            log(f"  ({time.perf_counter() - t_path:.1f} s)")
     log(json.dumps({"main_path": {n: r["result"] for n, r in runs.items()},
                     "phases": ["1", "2"] + args.phases,
                     "seconds": time.perf_counter() - t_start}))

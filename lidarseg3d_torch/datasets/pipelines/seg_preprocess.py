@@ -82,13 +82,11 @@ class SegVoxelization:
         self.max_points_in_voxel = cfg["max_points_in_voxel"]
         mv = cfg["max_voxel_num"]
         self.max_voxel_num = [mv, mv] if isinstance(mv, int) else mv
-        if not cfg.get("sort_by_key", True):
-            raise NotImplementedError("SegVoxelization: the port voxelizes "
-                                      "in key order only (sort_by_key)")
         self.voxel_generator = VoxelGenerator(
             voxel_size=self.voxel_size, point_cloud_range=self.range,
             max_num_points=self.max_points_in_voxel,
-            max_voxels=self.max_voxel_num[0])
+            max_voxels=self.max_voxel_num[0],
+            sort_by_key=cfg.get("sort_by_key", True))
 
     def __call__(self, sample, info):
         train = sample["mode"] == "train"

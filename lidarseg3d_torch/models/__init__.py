@@ -4,7 +4,7 @@ from .builder import (  # noqa: F401
 )
 from .registry import (  # noqa: F401
     BACKBONES, DETECTORS, HEADS, IMG_BACKBONES, IMG_HEADS, NECKS,
-    POINT_HEADS, READERS,
+    POINT_HEADS, READERS, ROI_HEAD, SECOND_STAGE,
 )
 # registration
 from .readers import (dynamic_vfe, pillar_encoder,  # noqa: F401,E402
@@ -17,5 +17,7 @@ from .img_backbones import hrnet, resnet  # noqa: F401,E402
 from .img_heads import fcn_head, fcn_mseg3d_head, sc_conv  # noqa: F401,E402
 from .point_heads import (  # noqa: F401,E402
     batchloss_head, mseg3d_head, polarnet_head)
+from .second_stage import bev_extractor  # noqa: F401,E402
+from .roi_heads import roi_head  # noqa: F401,E402
 from .segmentors import (point_pillars, seg_mseg3d,  # noqa: F401,E402
-                         seg_net, seg_polarnet, voxelnet)
+                         seg_net, seg_polarnet, two_stage, voxelnet)

@@ -10,3 +10,5 @@ IMG_HEADS = Registry("img_head")
 DETECTORS = Registry("detector")
 NECKS = Registry("neck")
 HEADS = Registry("head")
+SECOND_STAGE = Registry("second_stage")
+ROI_HEAD = Registry("roi_head")

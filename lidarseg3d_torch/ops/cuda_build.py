@@ -5,8 +5,8 @@ Each CUDA source under ``lidarseg3d_torch/csrc/`` (``SOURCES``) is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into its own shared library
 with a plain C interface and loaded with ``ctypes``; no PyTorch headers
 are involved, so a build takes seconds. The host C sources
-(``HOST_SOURCES``: the JPEG entropy coder) are compiled the same way by
-the system C compiler (``cc``). Libraries land in
+(``HOST_SOURCES``: the JPEG entropy coder and the voxelizer) are compiled
+the same way by the system C compiler (``cc``). Libraries land in
 ``lidarseg3d_torch/build/`` (listed in ``.gitignore``) under a name that
 carries a hash of the source, of the shared headers (``csrc/*.cuh``, for
 the CUDA sources) and of the flags, so an edited source is rebuilt and an
@@ -37,7 +37,7 @@ SOURCES = {
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-HOST_SOURCES = {"jpeg_huffman": "jpeg_huffman.c"}
+HOST_SOURCES = {"jpeg_huffman": "jpeg_huffman.c", "voxelize": "voxelize.c"}
 CC_FLAGS = ["-std=c99", "-O2", "-shared", "-fPIC"]
 
 _libs = {}

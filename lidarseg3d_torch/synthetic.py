@@ -788,6 +788,18 @@ def _waymo_boxes(rng, n, max_range, fr, cam_hw):
             "gt_num_points": np.asarray(counts, np.int32)}
 
 
+def _waymo_pose(i):
+    """The vehicle pose (4x4, vehicle -> global) of a seeded tree's frame
+    ``i``: heading 0.5 rad, 1 m further along it each frame (so the
+    previous frame lies 1 m behind along x, as its sweep transform
+    says)."""
+    c, s = np.cos(0.5), np.sin(0.5)
+    pose = np.eye(4)
+    pose[:2, :2] = [[c, -s], [s, c]]
+    pose[:3, 3] = [1200.0 + i * c, -340.0 + i * s, 12.0]
+    return pose
+
+
 def write_semanticwaymo_tree(root, splits=("training", "validation"),
                              frames=2, seed=0, cams=tuple(WAYMO_CAMS),
                              cam_hw=None, second_return=0.08,
@@ -819,7 +831,9 @@ def write_semanticwaymo_tree(root, splits=("training", "validation"),
     20-80 returns inside each box after the short-range lidars' and the
     converter's ``gt_boxes`` [N, 7] (x, y, z, length, width, height,
     heading), ``gt_names`` and ``gt_num_points`` to the frame's
-    annotations. -> {split: info path}."""
+    annotations. Each frame pkl carries the converter's ``timestamp`` and
+    ``veh_to_global``: the vehicle drives 1 m along its heading (0.5 rad
+    in the global frame) each frame. -> {split: info path}."""
     rng = np.random.default_rng(seed)
     brng = np.random.default_rng([seed, 2])  # boxes only
     cam_hw = dict({c: v[2] for c, v in WAYMO_CAMS.items()}, **(cam_hw or {}))
@@ -850,7 +864,7 @@ def write_semanticwaymo_tree(root, splits=("training", "validation"),
             det = _waymo_boxes(brng, boxes, max_range, fr, cam_hw)
             obj = {
                 "token": token, "timestamp": stamp / 1e6,
-                "veh_to_global": np.eye(4),
+                "veh_to_global": _waymo_pose(i),
                 "lidars": {
                     "points_xyz": fr["xyz"], "points_feature": fr["feat"],
                     "points_cp": fr["cp"],
@@ -1086,24 +1100,34 @@ def write_mini_waymo_config(path, config, data_root, work_dir="unused"):
 # of 2 * 128 channels, room for the decode's top 100 of a one-class task;
 # PointPillars: 0.4 m, a 64x64 canvas), capacity 2048 voxels,
 # one conv per RPN block at 16 / 32 channels, a 16-wide shared head conv,
-# B=2
+# B=2; a two-stage config's first stage so, its extractors on that grid
+# and its RoI head's layers 16 wide
 _MINI_DET = """
 point_cloud_range = [-12.8, -12.8, point_cloud_range[2], 12.8, 12.8,
                      point_cloud_range[5]]
-if model["type"] == "PointPillars":
+_m = (model["first_stage_cfg"] if model["type"] == "TwoStageDetector"
+      else model)
+if _m["type"] == "PointPillars":
     voxel_size = [0.4, 0.4, point_cloud_range[5] - point_cloud_range[2]]
-    model["reader"].update(voxel_size=tuple(voxel_size),
+    _m["reader"].update(voxel_size=tuple(voxel_size),
                            pc_range=tuple(point_cloud_range),
                            num_filters=(16, 16))
-    model["backbone"].update(num_input_features=16)
-    model["neck"].update(layer_nums=(1, 1, 1), ds_num_filters=(16, 32, 32),
+    _m["backbone"].update(num_input_features=16)
+    _m["neck"].update(layer_nums=(1, 1, 1), ds_num_filters=(16, 32, 32),
                          us_num_filters=(16, 16, 16), num_input_features=16)
 else:
     voxel_size = [0.2, 0.2, (point_cloud_range[5] - point_cloud_range[2])
                   / 16]
-    model["neck"].update(layer_nums=(1, 1), ds_num_filters=(16, 32),
-                         us_num_filters=(16, 16))
-model["bbox_head"].update(share_conv_channel=16)
+    _m["neck"].update(layer_nums=(1, 1), ds_num_filters=(16, 32),
+                      us_num_filters=(16, 16))
+_m["bbox_head"].update(share_conv_channel=16)
+if model["type"] == "TwoStageDetector":
+    model["second_stage_modules"] = tuple(
+        dict(m, pc_start=point_cloud_range[:2], voxel_size=voxel_size[:2])
+        for m in model["second_stage_modules"])
+    model["roi_head"]["input_channels"] = 32 * model["num_point"]
+    model["roi_head"]["model_cfg"].update(SHARED_FC=(16, 16),
+                                          CLS_FC=(16, 16), REG_FC=(16, 16))
 voxel_generator.update(range=point_cloud_range, voxel_size=voxel_size,
                        max_voxel_num=[2000, 2000])
 capacity = dict(max_voxels=2048, max_points={max_points})

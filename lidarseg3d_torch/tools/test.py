@@ -30,9 +30,10 @@ are summed over the processes, so every frame counts once and every
 process returns the mIoU of the whole split; rank 0 logs it, and on the
 test split rank 0 gathers the predictions and writes the files.
 
-Detection configs (VoxelNet, PointPillars) take the JAX tool's detection
-branch: ``apis.det_eval.run_det_eval`` decodes the boxes (rotated or
-circle NMS and double flip as the config's ``test_cfg`` says), the
+Detection configs (VoxelNet, PointPillars, TwoStageDetector) take the
+JAX tool's detection branch: ``apis.det_eval.run_det_eval`` decodes the
+boxes (rotated or circle NMS and double flip as the config's
+``test_cfg`` says; a two-stage model's refined boxes), the
 prediction pkl ``WORK_DIR/det_predictions.pkl`` is written, the local
 metrics (core/det_metrics.py: nuScenes mAP or Waymo AP / APH) are logged
 when the ground truth covers every frame on the val split, and the
@@ -103,7 +104,7 @@ def tta_dataset_cfg(ds_cfg, tta_cfg):
     return dict(ds_cfg, pipeline=pipe)
 
 
-DET_TYPES = ("VoxelNet", "PointPillars")
+DET_TYPES = ("VoxelNet", "PointPillars", "TwoStageDetector")
 
 
 def model_config(cfg):
@@ -112,9 +113,31 @@ def model_config(cfg):
     model_cfg = cfg.model.to_dict()
     for key in ("train_cfg", "test_cfg"):
         model_cfg.setdefault(key, dict(cfg.get(key) or {}))
-    if model_cfg["type"] in DET_TYPES:
+    if model_cfg["type"] == "TwoStageDetector":
+        model_cfg["first_stage_cfg"].setdefault("input_shape",
+                                                input_shape_of(cfg))
+    elif model_cfg["type"] in DET_TYPES:
         model_cfg.setdefault("input_shape", input_shape_of(cfg))
     return model_cfg
+
+
+def load_model(cfg, checkpoint, device):
+    """The config's model on ``device`` with the weights and BN statistics
+    of ``checkpoint`` (a work dir, read through its ``latest.txt``, or
+    ``WORK_DIR/epoch_N``) -> a weights-only TrainState."""
+    from ..apis.train import TrainState, load_checkpoint
+    from ..models import build_detector
+
+    model = build_detector(model_config(cfg), device=device)
+    state = TrainState(step=0, model=model, opt_state=None, generator=None)
+    ckpt = checkpoint.rstrip("/")
+    name = os.path.basename(ckpt)
+    if name.startswith("epoch_"):
+        load_checkpoint(os.path.dirname(ckpt), state,
+                        epoch=int(name.split("_")[1]), partial=True)
+    else:
+        load_checkpoint(ckpt, state, partial=True)
+    return state
 
 
 def main(argv=None):
@@ -136,9 +159,7 @@ def main(argv=None):
 
 def _evaluate(args, rank, world, device):
     from ..apis.eval import evaluate_dataset, run_eval
-    from ..apis.train import TrainState, load_checkpoint
     from ..datasets import SegDataLoader, build_dataset, default_worker_mode
-    from ..models import build_detector
     from ..utils.config import Config
 
     cfg = Config.fromfile(args.config)
@@ -166,15 +187,8 @@ def _evaluate(args, rank, world, device):
         num_workers=cfg.data.get("workers_per_gpu", 4),
         worker_mode=default_worker_mode(cfg.data), drop_last=False)
 
-    model = build_detector(model_config(cfg), device=device)
-    state = TrainState(step=0, model=model, opt_state=None, generator=None)
-    ckpt = args.checkpoint.rstrip("/")
-    name = os.path.basename(ckpt)
-    if name.startswith("epoch_"):
-        load_checkpoint(os.path.dirname(ckpt), state,
-                        epoch=int(name.split("_")[1]), partial=True)
-    else:
-        load_checkpoint(ckpt, state, partial=True)
+    state = load_model(cfg, args.checkpoint, device)
+    model = state.model
     logger.info("checkpoint loaded")
 
     if cfg.model["type"] in DET_TYPES:

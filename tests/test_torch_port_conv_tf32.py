@@ -25,6 +25,8 @@ import torch
 from lidarseg3d_torch.ops.rulebook_conv import (rulebook_conv_dw_plain,
                                                 rulebook_conv_plain)
 
+from test_torch_port_support import one_torch_thread  # noqa: F401
+
 TOL = 1e-5  # chip_smoke.py TOL_CONV["fp32"] and TOL_DW["fp32"]
 K = 27
 

@@ -70,11 +70,12 @@ def grid(pcr, vsz):
 
 def det_batch(B, pcr, vsz, task_ids, seed=0, npts=1500, nboxes=6,
               max_voxels=2048, max_points=2048, points_per_voxel=5,
-              out_factor=8, vel=False, frames=False):
+              out_factor=8, vel=False, frames=False, gt=False):
     """A collated batch of B frames: uniform points plus returns inside
     ``nboxes`` boxes of the tasks' classes, voxelized on (pcr, vsz), with
-    the boxes' CenterPoint targets (velocity with ``vel``); with
-    ``frames`` the list of frames instead."""
+    the boxes' CenterPoint targets (velocity with ``vel``; with ``gt`` also
+    the two-stage head's ``gt_boxes_and_cls`` [16, 8], 1-based classes);
+    with ``frames`` the list of frames instead."""
     rng = np.random.default_rng(seed)
     vg = VoxelGenerator(vsz, pcr, max_num_points=points_per_voxel,
                         max_voxels=max_voxels)
@@ -103,13 +104,19 @@ def det_batch(B, pcr, vsz, task_ids, seed=0, npts=1500, nboxes=6,
                              1).astype(np.float32)
         voxels, coords, nper = vg.generate(pts)
         g = grid(pcr, vsz)
+        cls = rng.integers(0, ncls, nboxes)
         tg = assign_center_targets(
-            boxes, rng.integers(0, ncls, nboxes), task_ids,
+            boxes, cls, task_ids,
             (g[1] // out_factor, g[2] // out_factor), list(vsz[:2]) + [1.0],
             pcr, out_factor=out_factor, max_objs=16, min_overlap=0.1)
         out.append(dict(voxels=voxels, coordinates=coords,
-                           num_points_per_voxel=nper, points=pts,
-                           det_targets=tg))
+                        num_points_per_voxel=nper, points=pts,
+                        det_targets=tg))
+        if gt:
+            gtc = np.zeros((16, 8), np.float32)
+            gtc[:nboxes, :7] = boxes[:, :7]
+            gtc[:nboxes, 7] = cls + 1
+            out[-1]["gt_boxes_and_cls"] = gtc
     if frames_out:
         return out
     return collate_segnet(out, max_voxels, max_points)

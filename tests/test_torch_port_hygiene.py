@@ -3,7 +3,9 @@ datasets, the train pipeline's augmentations, colour-space and JPEG
 modules, the nuScenes dataset, info builder and JPEG reader, SegNet's
 reader, head and segmentor, the multi-process runtime, the detection
 stack (CenterPoint's VoxelNet and PointPillars, their pipeline, metrics
-and writers), and tools included), chip_smoke.py and the profile_*.py scripts import nothing of
+and writers; the two-stage detector, tracking, the C voxelizer's loader,
+the point operations, the FLOP counter, the logger and the single-frame
+tools), and tools included), chip_smoke.py and the profile_*.py scripts import nothing of
 JAX, Flax, optax, the JAX package or __graft_entry__, and no image
 library (cv2, PIL, imageio: the card's machine has none); the entry
 points run on cuda unless told otherwise; the constants the CPU
@@ -63,6 +65,16 @@ DET_MODULES = ("core/box_np_ops.py", "core/center_targets.py",
                "models/readers/pillar_encoder.py",
                "models/segmentors/voxelnet.py",
                "models/segmentors/point_pillars.py", "apis/det_eval.py")
+SLICE15_MODULES = ("models/second_stage/bev_extractor.py",
+                   "models/roi_heads/roi_head.py",
+                   "models/segmentors/two_stage.py",
+                   "tracking/__init__.py", "tracking/tracker.py",
+                   "tools/nusc_tracking.py", "tools/waymo_tracking.py",
+                   "core/native_voxelize.py", "ops/pointnet2.py",
+                   "utils/flops.py", "utils/log.py",
+                   "tools/single_inference.py",
+                   "tools/simple_inference_waymo.py", "tools/visual.py",
+                   "tools/instance_preprocess.py")
 SCRIPTS = ("chip_smoke.py", "profile_build.py", "profile_convs.py",
            "profile_merge.py")
 
@@ -88,7 +100,8 @@ def test_port_imports_no_jax():
     wanted = (set(TRAINING_MODULES) | set(EVAL_MODULES)
               | set(TRAIN_ENTRY_MODULES) | set(NUSC_MODULES)
               | set(SEGNET_MODULES) | set(POLAR_MODULES)
-              | set(DIST_MODULES) | set(WAYMO_MODULES) | set(DET_MODULES))
+              | set(DIST_MODULES) | set(WAYMO_MODULES) | set(DET_MODULES)
+              | set(SLICE15_MODULES))
     assert wanted <= listed, wanted - listed
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imports(p) if m.split(".")[0] in FORBIDDEN]
@@ -114,6 +127,23 @@ def test_build_detector_defaults_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="cuda"):
             build_detector(cfg)
+
+
+@pytest.mark.parametrize("tool", ["single_inference",
+                                  "simple_inference_waymo"])
+def test_single_frame_tools_default_to_cuda(tool, tmp_path):
+    """The single-frame tools run on cuda unless --device cpu is given,
+    and raise without a card (before they read anything)."""
+    import importlib
+
+    mod = importlib.import_module(f"lidarseg3d_torch.tools.{tool}")
+    flag = "--scan" if tool == "single_inference" else "--frame"
+    argv = [str(tmp_path / "none.py"), "--checkpoint", str(tmp_path), flag,
+            str(tmp_path / "none.bin")]
+    assert mod.parse_args(argv).device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            mod.main(argv)
 
 
 def test_kernel_wrappers_take_plain_version_only_on_cpu():
@@ -146,6 +176,16 @@ def test_every_kernel_source_is_registered():
     on_disk = {p.name for p in cuda_build.CSRC.glob("*.cu")}
     assert on_disk == set(cuda_build.SOURCES.values())
     assert len(on_disk) == 5
+
+
+def test_every_host_source_is_registered():
+    """Every host C source (the JPEG entropy coder, the voxelizer) is
+    built by cuda_build."""
+    from lidarseg3d_torch.ops import cuda_build
+
+    on_disk = {p.name for p in cuda_build.CSRC.glob("*.c")}
+    assert on_disk == set(cuda_build.HOST_SOURCES.values()) == {
+        "jpeg_huffman.c", "voxelize.c"}
 
 
 def _cu_ints(name):

@@ -76,8 +76,11 @@ def run(request):
     jstate0 = jtrain.TrainState(
         step=jnp.zeros((), jnp.int32), params=variables["params"],
         batch_stats=variables["batch_stats"], opt_state=())
-    jret, _ = jm.apply(variables, dict(jex, input_shape=ishape), train=False)
-    jpred = jax.jit(jtrain.make_eval_step(jm, ishape))(jstate0, jex)
+    # the forward and the eval step in one compiled program (an eager
+    # apply dispatches the sparse stack op by op)
+    jret, jpred = jax.jit(lambda v, st, e: (
+        jm.apply(v, dict(e, input_shape=ishape), train=False)[0],
+        jtrain.make_eval_step(jm, ishape)(st, e)))(variables, jstate0, jex)
     tx, jlr = jbuild_opt(OPT, LR, TOTAL, grad_clip=CLIP)
     state = jtrain.TrainState(
         step=jstate0.step, params=variables["params"],

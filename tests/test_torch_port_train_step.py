@@ -47,6 +47,7 @@ from lidarseg3d_torch.models import build_detector as tbuild
 from lidarseg3d_torch.solver.optim import build_one_cycle_optimizer as tbuild_opt
 
 from _torch_port_helpers import assert_close_rel, init_shapes, n, random_variables
+from test_torch_port_support import one_torch_thread  # noqa: F401
 
 B, V, N, IMG = 2, 1024, 1024, (64, 128)
 OPT = dict(type="adam", wd=0.01)
