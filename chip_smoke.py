@@ -39,8 +39,9 @@ exit):
      small seeded model on the card (kernels) against the CPU (plain
      versions: loss terms within 1e-4; gradients of the lidar branch and
      the head within 1e-3 in relative L2 norm and 5e-3 of their max, of
-     the image branch within 1e-2 and 2e-2), each side's distance from the
-     same step in float64 on the CPU printed beside those limits, and
+     the image branch within 1e-2 and 2e-2, or else at least as close to
+     the same step in float64 on the CPU as the CPU's fp32 gradient), each
+     side's distance from the float64 step printed beside those limits, and
      twelve steps on one fixed small batch that must lower the loss;
   3d. eval: the published SemanticKITTI MSeg3D config
      (configs/semantickitti/MSeg3D/semkitti_avgvfe_unetscn3d_hrnetw18_lr1en2_e12.py:
@@ -229,6 +230,21 @@ exit):
      against tools.test's), and the C voxelizer against the numpy path
      byte for byte, each timed per frame at the published Waymo and
      SemanticKITTI sizes;
+  3w. the last modules: UNetCylinder3D (r=2, 16 input features) on the
+     480x360x32 cylindrical grid that the published Cylinder3D nuScenes
+     config's VFE builds from a seeded 32-beam scan (capacity 120,000),
+     bit for bit equal to UNetSCN3D with the same weights, its launches a
+     forward and time; tools.warm_cache on the published SemanticKITTI
+     MSeg3D config (a train and an eval step at B=2 on the synthetic
+     batch of the config's shapes: the seconds and peak memory of each,
+     the launches of 3e's step and 3d's frame); tools.synthetic_e2e, the
+     train -> checkpoint -> eval -> TTA closure, cut to 6 frames and 12
+     epochs at B=2 (the plain and TTA mIoU, held to 0.05, the JAX
+     package's own closure at this cut less the spread of the port's
+     initial draws, and to plain - 0.02; the seconds by stage; the
+     launches of 36 3c steps and 12 frames); the full 40-frame closure at
+     the tool's 0.85 is its own command (see the notes above phase 3w's
+     code);
   4. hold each kernel against its plain version on the card at each main
      path's shapes, from a real scan of that path: the rulebook conv in
      fp32 and bf16 (stage-1 subm, stage-1->2 strided, stage-4 subm; and as
@@ -271,7 +287,12 @@ exit):
      RankTable; from a frame of det-nu and a B=4 batch of det-wy-train,
      the detection shapes (check_det_paths: the (3,1,1) / (2,1,1) extra
      conv and its dX, stage 4's (0,1,1) conv, dX and dW at 600,000 rows,
-     all 12 rulebooks of the chain on both table kinds). The
+     all 12 rulebooks of the chain on both table kinds); from 3w's
+     paths' own inputs (the cylindrical grid's structure, warm_cache's
+     B=2 batch, a frame of the closure's tree), the input and stride-2
+     convs, the stage-1 dX and dW of the two training paths, every
+     rulebook on both table kinds, the merge on the KeyTable stages and
+     the pack and lookup on the first RankTable stage. The
      rulebook lookups: all
      10 rulebooks of each path's structures (semkitti, train at B=2,
      semnusc, eval, train entry at B=2, eval-nu, train-nu at B=3,
@@ -381,7 +402,17 @@ TOL_DDP_GRAD = {"lidar+head": (1e-2, 2e-2), "image": (5e-2, 1e-1)}
 # head's eps=1e-6 BN (on the CPU the fp32 gradient of point_head
 # TorchLinear_1.weight is 1.8e-3 of its max off a float64 run of the same
 # step). The image branch (cuDNN against the CPU's convolutions, no kernel
-# of the port; batch statistics over as few as 16 pixels) gets (1e-2, 2e-2)
+# of the port; batch statistics over as few as 16 pixels) gets (1e-2, 2e-2).
+# A tensor beyond a limit passes only where the float64 step arbitrates
+# for the card: by that limit's measure (L2 norm, max entry) the card's
+# gradient is at least as close to it as the CPU's fp32 one. Both fp32
+# sides sit ~1e-3 from float64 in front of that BN, so two right answers
+# can be 1e-3 apart: with the JAX package's initializers the camera
+# projection point_head TorchLinear_1.weight read 1.075e-3 card vs CPU in
+# L2, the card 8.43e-4 and the CPU 9.37e-4 from float64, the same under
+# every cuDNN setting tried (deterministic, benchmark, channels-last, a
+# zero workspace cap; cuDNN off: 1.103e-3, 5.81e-4 from float64;
+# profile_train_precision.py). A kernel at fault is far from float64 too
 TOL_TRAIN_LOSS = 1e-4
 TOL_TRAIN_GRAD = {"lidar+head": (1e-3, 5e-3), "image": (1e-2, 2e-2)}
 TOL_BF16_BRANCH = 0.1  # max |err| / max |fp32|, tests/_bf16_test_body.py
@@ -1565,6 +1596,7 @@ def kernel_checks(runs):
         check_sdseg_paths(report, runs, gen)
         check_cyl_paths(report, runs, gen)
         check_det_paths(report, runs, gen)
+        check_last_module_paths(report, runs, gen)
 
         # the 0.1 m SemanticKITTI grid: 41 x 1504 x (1504 + 2) cells, with
         # a semkitti scan's voxel count spread over it key-sorted
@@ -2475,19 +2507,35 @@ def small_train_check():
                              f"card, {want} on the CPU")
     floor = 1e-8 * cpu[0]["grad_norm"]
     worst = {g: [("", 0.0), ("", 0.0)] for g in TOL_TRAIN_GRAD}
-    bad = []
+    bad, arbitrated = [], []
+
+    def closer_to_float64(k, measure):
+        """The card's gradient is at least as close to the float64 step's
+        as the CPU's fp32 one by ``measure`` (TOL_TRAIN_GRAD's note)."""
+        exact = ref[k]
+        if not exact.any():
+            return False
+        return measure(card[1][k] - exact) <= measure(cpu[1][k] - exact)
+
     for k, want in cpu[1].items():
         group = "image" if k.startswith("img_") else "lidar+head"
         tol_l2, tol_max = TOL_TRAIN_GRAD[group]
         scale = float(want.abs().max())
         err = float((card[1][k] - want).abs().max())
-        if err > tol_max * scale + floor:
-            bad.append(f"{k}: off by {err:.3e} at max {scale:.3e}")
+        l2 = (float((card[1][k] - want).norm() / want.norm())
+              if scale > 10 * floor else 0.0)
+        beyond = [f for f, out in ((lambda d: float(d.norm()), l2 > tol_l2),
+                                   (lambda d: float(d.abs().max()),
+                                    err > tol_max * scale + floor)) if out]
+        if beyond:
+            if all(closer_to_float64(k, f) for f in beyond):
+                arbitrated.append(f"{k} ({l2:.3e} in relative L2, "
+                                  f"{err / max(scale, 1e-30):.3e} of its max)")
+            else:
+                bad.append(f"{k}: off by {err:.3e} at max {scale:.3e}, "
+                           f"{l2:.3e} in relative L2 norm")
         if scale <= 10 * floor:
             continue
-        l2 = float((card[1][k] - want).norm() / want.norm())
-        if l2 > tol_l2:
-            bad.append(f"{k}: off by {l2:.3e} in relative L2 norm")
         w = worst[group]
         w[0] = max(w[0], (k, l2), key=lambda kv: kv[1])
         w[1] = max(w[1], (k, err / scale), key=lambda kv: kv[1])
@@ -2498,6 +2546,10 @@ def small_train_check():
         log(f"    {group}: worst relative L2 {wl2[1]:.2e} ({wl2[0]}), worst "
             f"max-entry {wmax[1]:.2e} ({wmax[0]}); limits "
             f"{TOL_TRAIN_GRAD[group]}")
+    if arbitrated:
+        log(f"    {len(arbitrated)} beyond the card-vs-CPU limits but at "
+            "least as close as the CPU's to the float64 step: "
+            + "; ".join(arbitrated[:10]))
     if bad:
         raise SystemExit("small train step: gradients on the card disagree "
                          "with the CPU:\n  " + "\n  ".join(bad[:10]))
@@ -5207,6 +5259,272 @@ def run_frame_tools(runs):
         k: w.launches for k, w in ws.items()})}
 
 
+# phase 3w: the last modules. UNetCylinder3D on the cylindrical grid that
+# the published Cylinder3D nuScenes config's VFE builds (480 x 360 x 32,
+# capacity 120,000; r=2 and 16 input features, as the VFE's fea_compre
+# gives them) from a seeded 32-beam scan, held bit for bit on the card
+# against UNetSCN3D with the same weights; tools.warm_cache on the
+# published SemanticKITTI MSeg3D config (its train and eval step on the
+# synthetic batch of the config's shapes at samples_per_gpu=2, the
+# launches of 3e's step plus 3d's frame); tools.synthetic_e2e, the train
+# -> checkpoint -> eval -> TTA closure, cut to 6 frames and 12 epochs at
+# B=2 (36 steps, then 6 frames plain and 6 with TTA of the mini config's
+# all-rank tables) and held to the tool's TTA check and to 0.05: the JAX
+# package's own tools/synthetic_e2e.py at this cut reads 0.1086, the
+# port's CPU readings over four seeds of its initialization 0.0761-0.1350,
+# a model that predicts one class at most 0.0220
+# (tests/test_torch_port_synthetic_e2e.py). The full closure, 40 frames
+# at the tool's 0.85, takes ~3 minutes of host-bound ~0.2 s steps, so it
+# runs as its own command on the card:
+#   python -m lidarseg3d_torch.tools.synthetic_e2e --epochs 40
+# (20 epochs, the tool's default, clear 0.85 in neither package; PERF.md)
+CYL_UNET = dict(config=CYL + "_lr1en2_e12.py", points=34688, seed=30,
+                ratio=2, max_range=50.0, convs=36)
+WARM = EVAL["config"]
+E2E = dict(frames=6, epochs=12, batch_size=2, min_miou=0.05)
+# a training step / an evaluation frame on tables of rank only (3c's)
+RANK_STEP = {"rulebook_conv": 71, "rulebook_conv_dw": 36,
+             "rulebook_rank": 10, "rulebook_cells": 0, "rulebook_decode": 0,
+             "lookup_single": 1, "rank_lookup": 0, "rank_pack": 4,
+             "merge_lookup": 0}
+RANK_FRAME = dict(RANK_STEP, rulebook_conv=36, rulebook_conv_dw=0)
+# 3e's step: 3d's frame (tables keys, keys, rank, rank), 35 dX, 36 dW
+KEYS_STEP = dict(KEYS_KEYS_RANK_RANK, rulebook_conv=71, rulebook_conv_dw=36)
+
+
+def zero_launches():
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    return ws
+
+
+def expect_launches(phase, what, ws, per):
+    """The launches since zero_launches() -> a dict; fails unless they
+    are ``per``'s."""
+    got = {k: w.launches for k, w in ws.items()}
+    if got != per:
+        raise SystemExit(f"phase {phase} {what}: launches {got}, expected "
+                         f"{per}")
+    log(f"  {what} launches: " + ", ".join(
+        f"{k} {v}" for k, v in got.items() if v))
+    return got
+
+
+def run_cyl_unet():
+    """Phase 3w's UNetCylinder3D (notes above)."""
+    import numpy as np
+    import torch
+    from lidarseg3d_torch import synthetic as syn
+    from lidarseg3d_torch.models import build_backbone, build_reader
+    from lidarseg3d_torch.models.layers import init_parameters
+    from lidarseg3d_torch.utils.config import Config
+
+    c = CYL_UNET
+    cfg = Config.fromfile(c["config"])
+    rd = cfg.model["reader"].to_dict()
+    gen = torch.Generator().manual_seed(c["seed"])
+    vfe = build_reader(rd)
+    init_parameters(vfe, gen)
+    vfe = vfe.to(DEV).eval()
+    N = cfg.capacity["max_points"]
+    pts, _ = syn._nusc_scan(np.random.default_rng(c["seed"]), c["points"],
+                            c["max_range"])
+    points = np.zeros((1, N, pts.shape[1]), np.float32)
+    points[0, :len(pts)] = pts
+    valid = np.arange(N)[None] < len(pts)
+    with torch.inference_mode():
+        st = vfe(torch.from_numpy(points).to(DEV),
+                 torch.from_numpy(valid).to(DEV))["sparse_tensor"]
+    lo = np.asarray(rd["point_cloud_range"][:3])
+    hi = np.asarray(rd["point_cloud_range"][3:])
+    vsize = (hi - lo) / np.asarray(rd["grid_size"])
+    # the structure's (z, y, x) axes are (r, phi, z): its xyz are (z, phi, r)
+    bb = dict(num_input_features=rd["fea_compre"],
+              point_cloud_range=tuple(lo[::-1]) + tuple(hi[::-1]),
+              voxel_size=tuple(vsize[::-1]),
+              model_cfg=dict(SCALING_RATIO=c["ratio"]))
+    cyl = build_backbone(dict(bb, type="UNetCylinder3D"))
+    init_parameters(cyl, gen)
+    scn = build_backbone(dict(bb, type="UNetSCN3D"))
+    scn.load_state_dict(cyl.state_dict())
+    cyl, scn = cyl.to(DEV).eval(), scn.to(DEV).eval()
+    ws = zero_launches()
+    with torch.inference_mode():
+        want = scn(st)
+    scn_launches = {k: w.launches for k, w in ws.items()}
+    if scn_launches["rulebook_conv"] != c["convs"]:
+        raise SystemExit(f"phase 3w: UNetSCN3D launched {scn_launches}")
+    ws = zero_launches()
+    with torch.inference_mode():
+        got = cyl(st)
+    launches = expect_launches("3w", "UNetCylinder3D (a forward, as "
+                               "UNetSCN3D's)", ws, scn_launches)
+    pairs = [(got["conv_point_features"], want["conv_point_features"])] + [
+        (got["multi_scale_3d_features"][k].features,
+         want["multi_scale_3d_features"][k].features)
+        for k in ("x_conv1", "x_conv2", "x_conv3", "x_conv4")]
+    f = got["conv_point_features"]
+    nv = int(st.structure.num_voxels[0])
+    if not all(torch.equal(x, y) for x, y in pairs) or \
+            not torch.isfinite(f).all() or float(f[0, :nv].abs().max()) == 0:
+        raise SystemExit("phase 3w: UNetCylinder3D differs from UNetSCN3D "
+                         "with the same weights, or its output is not finite")
+    with torch.inference_mode():
+        ms = cuda_time(lambda: cyl(st), reps=5, warmup=1)
+        books = cyl.structures(st.structure)
+    kinds = [type(books[f"t{i}"]).__name__ for i in range(1, 5)]
+    res = dict(points=len(pts), voxels=nv, grid=list(rd["grid_size"]),
+               capacity=st.structure.capacity, tables=kinds, ms=ms)
+    log(f"  UNetCylinder3D r={c['ratio']} on the {tuple(rd['grid_size'])} "
+        f"cylindrical grid: {len(pts)} points -> {nv} voxels (capacity "
+        f"{st.structure.capacity}), tables {kinds}; equal to UNetSCN3D "
+        f"with the same weights bit for bit; {ms:.2f} ms a forward (CUDA "
+        "events, mean of 5)")
+    return dict(result=res, launches=launches,
+                no_profile=True, st=st, books=books, c1=16 * c["ratio"],
+                train=False)
+
+
+def run_warm_cache():
+    """Phase 3w's tools.warm_cache (notes above)."""
+    import torch
+    from lidarseg3d_torch.apis.train import example_to_device
+    from lidarseg3d_torch.tools import warm_cache
+    from lidarseg3d_torch.tools.test import input_shape_of
+    from lidarseg3d_torch.utils.config import Config
+
+    per = {k: KEYS_STEP[k] + KEYS_KEYS_RANK_RANK[k] for k in KEYS_STEP}
+    ws = zero_launches()
+    t0 = time.perf_counter()
+    out = warm_cache.main([WARM])
+    secs = time.perf_counter() - t0
+    launches = expect_launches("3w", "warm_cache (a train and an eval step)",
+                               ws, per)
+    res = dict(seconds=secs, batch_size=out["batch_size"],
+               build_seconds=out["build_seconds"], loss=out["train"]["loss"])
+    for step in ("train", "eval"):
+        res[f"{step}_s"] = out[step]["seconds"]
+        res[f"{step}_peak_gib"] = out[step]["peak_bytes"] / 2 ** 30
+    log(f"  warm_cache {WARM} B={out['batch_size']}: train step "
+        f"{res['train_s']:.2f} s, peak {res['train_peak_gib']:.2f} GiB; eval "
+        f"step {res['eval_s']:.2f} s, peak {res['eval_peak_gib']:.2f} GiB "
+        f"(the peaks count what earlier phases hold); {secs:.1f} s the "
+        "tool")
+    cfg = Config.fromfile(WARM)
+    model = out["state"].model
+    ex = example_to_device(warm_cache.synthetic_example(
+        cfg, out["batch_size"]), DEV)
+    ex["input_shape"] = input_shape_of(cfg)
+    with torch.inference_mode():
+        st, books = lidar_books(model.eval(), ex)
+    return dict(result=res, launches=launches, no_profile=True, st=st,
+                books=books, c1=32, train=True)
+
+
+def run_synthetic_e2e():
+    """Phase 3w's tools.synthetic_e2e (notes above): its launches and its
+    result."""
+    import tempfile
+
+    import torch
+    from lidarseg3d_torch.datasets import build_dataset
+    from lidarseg3d_torch.models import build_detector
+    from lidarseg3d_torch.tools import synthetic_e2e
+    from lidarseg3d_torch.tools.test import input_shape_of, model_config
+    from lidarseg3d_torch.utils.config import Config
+
+    e = E2E
+    argv = ["--root", tempfile.mkdtemp(prefix="synthetic_e2e_"), "--frames",
+            str(e["frames"]), "--epochs", str(e["epochs"]), "--batch_size",
+            str(e["batch_size"]), "--min-miou", str(e["min_miou"])]
+    log(f"  tools.synthetic_e2e {' '.join(argv)}")
+    ws = zero_launches()
+    t0 = time.perf_counter()
+    out = synthetic_e2e.main(argv)
+    wall = time.perf_counter() - t0
+    steps = e["epochs"] * (e["frames"] // e["batch_size"])
+    per = {k: steps * RANK_STEP[k] + 2 * e["frames"] * RANK_FRAME[k]
+           for k in RANK_STEP}
+    launches = expect_launches(
+        "3w", f"synthetic_e2e ({steps} steps, {e['frames']} frames plain and "
+        "with TTA)", ws, per)
+    res = dict(out["seconds"], miou=out["miou"], miou_tta=out["miou_tta"],
+               frames=e["frames"], epochs=e["epochs"], steps=steps,
+               seconds=wall)
+    log(f"  synthetic_e2e: mIoU {out['miou']:.4f}, with TTA "
+        f"{out['miou_tta']:.4f} ({e['frames']} frames, {e['epochs']} epochs "
+        f"at B={e['batch_size']}, lr 0.01; held to {e['min_miou']} and to "
+        f"plain - 0.02); {wall:.1f} s: fixture "
+        f"{out['seconds']['fixture']:.1f}, train {out['seconds']['train']:.1f}"
+        f", test {out['seconds']['test']:.1f}, TTA {out['seconds']['tta']:.1f}")
+    cfg = Config.fromfile(out["config"])
+    model = build_detector(model_config(cfg), device=DEV)
+    ex = first_example(build_dataset(cfg.data.val.to_dict()), caps(cfg),
+                       input_shape_of(cfg), DEV)
+    with torch.inference_mode():
+        st, books = lidar_books(model, ex)
+    return dict(result=res, launches=launches, no_profile=True, st=st,
+                books=books, c1=16, train=True)
+
+
+def run_last_modules():
+    """Phase 3w (notes above)."""
+    return {"cyl_unet": run_cyl_unet(), "warm_cache": run_warm_cache(),
+            "synthetic_e2e": run_synthetic_e2e()}
+
+
+def check_last_module_paths(report, runs, gen):
+    """Phase 4's rows of the 3w paths: from each path's own input, the
+    input conv and the stride-2 conv (and, for a training path, the
+    stage-1 dX and dW), every rulebook of its structures on both table
+    kinds, the merge on its KeyTable stages and the pack of its first
+    RankTable stage."""
+    import torch
+    from lidarseg3d_torch.ops import coords as co
+
+    for name in ("cyl_unet", "warm_cache", "synthetic_e2e"):
+        if name not in runs:
+            continue
+        r = runs[name]
+        st, b, c1 = r["st"], r["books"], r["c1"]
+        B, V, cin = st.features.shape
+        log(f"  {name} stage voxels: " + " ".join(
+            f"s{i}={b[f's{i}'].num_voxels.tolist()}/{b[f's{i}'].capacity}"
+            for i in range(1, 5)))
+        check_conv(report, f"{name} subm {cin}->{c1} B={B} V={V}",
+                   st.features, b["subm1"], cin, c1, gen,
+                   dtypes=("fp32",) if cin % 2 else ("fp32", "bf16"))
+        f1 = torch.rand(B, V, c1, generator=gen).to(DEV)
+        check_conv(report, f"{name} strided {c1}->{2 * c1} B={B} {V}->"
+                   f"{b['s2'].capacity}", f1, b["down2"], c1, 2 * c1, gen)
+        if r["train"]:
+            check_conv(report, f"dX of subm {c1}->{c1} {name} B={B} V={V}",
+                       f1, b["subm1"], c1, c1, gen, dx=True)
+            check_dw(report, f"{name} subm {c1}->{c1} B={B} V={V}", f1,
+                     b["subm1"], c1, c1, gen)
+        del f1
+        check_path_rulebooks(report, name, b)
+        packed = False
+        for i in range(1, 5):
+            t = b[f"t{i}"]
+            s = b[f"s{i}"]
+            Z, Y, X = s.spatial_shape
+            if isinstance(t, co.KeyTable):
+                check_merge(report, f"{name} stage-{i} subm B={B} "
+                            f"{Z * Y * (X + 2)} cells", t, subm_stream(b, i))
+            elif not packed:
+                act = co.activity(s.coords, s.num_voxels, s.spatial_shape)
+                nce = act.shape[1] - 1
+                check_pack(report, f"{name} stage-{i} B={B} {nce} cells",
+                           act, nce)
+                check_lookup(report, f"{name} stage-{i} B={B} {nce} cells",
+                             t.packed, subm_stream(b, i))
+                packed = True
+        del r["st"], r["books"]
+        torch.cuda.empty_cache()
+
+
 def det_rulebooks(b):
     """The rulebooks of SpMiddleResNetFHD.structures (transposed): (name,
     the structure whose rows it fills, the stage whose table it reads,
@@ -5308,7 +5626,7 @@ def check_det_paths(report, runs, gen):
 
 PHASES = ("3", "3b", "3c", "3d", "3e", "3f", "3g", "3h", "3i", "3j", "3k",
           "3l", "3m", "3n", "3o", "3p", "3q", "3r", "3s", "3t", "3u", "3v",
-          "4", "5")
+          "3w", "4", "5")
 
 
 def parse_args(argv):
@@ -5430,6 +5748,10 @@ def main(argv=None):
         ("3v", "the tools: nuScenes and Waymo tracking, single_inference, "
          "simple_inference_waymo, the C voxelizer",
          lambda: run_frame_tools(runs)),
+        ("3w", "the last modules: UNetCylinder3D on the Cylinder3D grid, "
+         "tools.warm_cache (published semkitti config), "
+         "tools.synthetic_e2e (cut to 6 frames, 12 epochs)",
+         run_last_modules),
     ]
     for ph, text, fn in steps:
         if ph in want:

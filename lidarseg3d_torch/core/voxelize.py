@@ -1,12 +1,14 @@
 """Host-side hard voxelization, own copy of lidarseg3d_tpu/core/voxelize.py.
 
-The production path, ``sort_by_key=True``, gives voxels in ascending
+The production path, ``sort_by_key=True`` (``VoxelGenerator``'s
+default), gives voxels in ascending
 linear (z, y, x) key order, which the rank tables of ops/coords.py require
 (row index == rank - 1); for float32 points it runs in C
 (core/native_voxelize.py, csrc/voxelize.c), byte-identical to the numpy
 code here (``points_to_voxel_numpy``), which stays its reference and
-serves other inputs. ``sort_by_key=False`` is the reference's
-first-occurrence order (numpy): voxels in the order the scan first
+serves other inputs. ``sort_by_key=False``, the default of
+``points_to_voxel`` as in the reference, is its first-occurrence order
+(numpy): voxels in the order the scan first
 reaches them, and past ``max_voxels`` the earliest-seen voxels are kept.
 """
 
@@ -22,7 +24,7 @@ def compute_grid_size(point_cloud_range, voxel_size):
 
 
 def points_to_voxel(points, voxel_size, coors_range, max_points=35,
-                    max_voxels=20000, sort_by_key=True):
+                    max_voxels=20000, sort_by_key=False):
     """Hard-voxelize a point cloud.
 
     Returns voxels [M, max_points, D] (zero padded; a voxel's first

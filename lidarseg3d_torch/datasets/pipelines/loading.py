@@ -66,8 +66,9 @@ PORTED = ("SemanticKITTIDataset", "SemanticNuscDataset",
 
 def _not_ported(kind):
     return NotImplementedError(
-        f"{kind}: lidarseg3d_torch loads {', '.join(PORTED)} (the "
-        "detection datasets: ROADMAP A9)")
+        f"{kind}: lidarseg3d_torch loads {', '.join(PORTED)}; the detection "
+        "configs read these datasets too, their boxes through the stages of "
+        "datasets/pipelines/det_pipeline.py")
 
 
 def _waymo_points(obj):

@@ -169,3 +169,13 @@ class UNetSCN3D(nn.Module):
 
     def forward(self, st_in: sp.SparseTensor):
         return self.convs(st_in, self.structures(st_in.structure))
+
+
+@BACKBONES.register_module
+class UNetCylinder3D(UNetSCN3D):
+    """Cylindrical-grid variant (lidarseg3d_tpu/models/backbones/
+    unet_scn.py:179 UNetCylinder3D; det3d scn_unet_cylinder3d.py:257). The
+    rulebooks do not depend on what the grid's axes mean, so the
+    architecture, the parameter names and the convert.py rules are
+    UNetSCN3D's: only the input structure's coordinates differ, (r, phi,
+    z) cells as Cylinder3DDynamicVoxelFeatureExtractor builds them."""

@@ -6,11 +6,17 @@ so a ``state_dict`` key is the Flax parameter path with ``/`` read as
 ``.``; convert.py relies on that. ``Scopes`` hands out those names.
 
 Initialization: ``init_parameters`` fills every parameter from an explicit
-``torch.Generator`` with the JAX package's torch-default distributions:
-U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for linear, conv, transposed-conv,
-sparse-conv and DCN weights and biases; ones/zeros for norms; BN running
-stats 0/1; a module's ``weight_fill`` / ``bias_fill`` (the JAX package's
-constant initializers) last.
+``torch.Generator`` with the JAX package's initializer for it:
+U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for ``TorchLinear`` weights and biases
+and sparse-conv kernels (the package's ``torch_uniform_init``); Flax's
+defaults for its ``nn.Conv`` / ``nn.ConvTranspose`` and the attention's
+``DenseGeneral`` projections (here ``nn.Conv2d`` / ``nn.ConvTranspose2d``
+and plain ``nn.Linear``): ``lecun_normal`` kernels (a normal truncated at
+2 sigma, scaled to a standard deviation of 1/sqrt(fan_in)) and zero
+biases; U(-sqrt(3/fan_in), sqrt(3/fan_in)) for the DCN kernel
+(``variance_scaling(1, "fan_in", "uniform")``); ones/zeros for norms; BN
+running stats 0/1; a module's ``weight_fill`` / ``bias_fill`` (the JAX
+package's constant initializers) last.
 """
 
 import math
@@ -21,6 +27,11 @@ from torch import nn
 
 from ..parallel import dist
 from ..utils import remat
+
+
+# the standard deviation of a unit normal truncated at +-2 (Flax's
+# variance_scaling divides by it)
+TRUNC_NORMAL_STD = 0.87962566103423978
 
 
 class Scopes:
@@ -141,21 +152,35 @@ def init_parameters(model, generator):
     """Seeded initialization (see module docstring); ``generator`` is a
     CPU torch.Generator, values are copied to each parameter's device."""
 
-    def uniform_(t, fan_in):
-        bound = 1.0 / math.sqrt(fan_in)
+    def uniform_(t, bound):
         v = torch.rand(t.shape, generator=generator, dtype=torch.float32)
         t.copy_((v * 2 - 1) * bound)
 
+    def lecun_normal_(t, fan_in):
+        # Flax's truncated_normal(-2, 2) by its inverse CDF, then scaled
+        # so that the truncated draw has a variance of 1 / fan_in
+        lo, hi = (0.5 * (1 + math.erf(z / math.sqrt(2))) for z in (-2, 2))
+        u = torch.rand(t.shape, generator=generator, dtype=torch.float64)
+        z = torch.erfinv(2 * (lo + u * (hi - lo)) - 1) * math.sqrt(2)
+        t.copy_(z * (1 / math.sqrt(fan_in) / TRUNC_NORMAL_STD))
+
+    def flax_default_(m, fan_in):
+        lecun_normal_(m.weight, fan_in)
+        if m.bias is not None:
+            m.bias.zero_()
+
     for m in model.modules():
-        if isinstance(m, nn.Linear):
-            uniform_(m.weight, m.in_features)
+        if isinstance(m, TorchLinear):
+            bound = 1.0 / math.sqrt(m.in_features)
+            uniform_(m.weight, bound)
             if m.bias is not None:
-                uniform_(m.bias, m.in_features)
-        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-            fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
-            uniform_(m.weight, fan_in)
-            if m.bias is not None:
-                uniform_(m.bias, fan_in)
+                uniform_(m.bias, bound)
+        elif isinstance(m, nn.Linear):
+            flax_default_(m, m.in_features)
+        elif isinstance(m, nn.Conv2d):
+            flax_default_(m, m.weight[0].numel())
+        elif isinstance(m, nn.ConvTranspose2d):
+            flax_default_(m, m.weight[:, 0].numel())
         elif isinstance(m, (MaskedBatchNorm, nn.LayerNorm)):
             m.weight.fill_(1.0)
             m.bias.fill_(0.0)
@@ -163,10 +188,10 @@ def init_parameters(model, generator):
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
         elif hasattr(m, "sparse_weight_fan_in"):
-            uniform_(m.weight, m.sparse_weight_fan_in)
+            uniform_(m.weight, 1.0 / math.sqrt(m.sparse_weight_fan_in))
         elif hasattr(m, "deform_kernel"):  # [K, C, Cout]: fan_in K * C
             K, C, _ = m.deform_kernel.shape
-            uniform_(m.deform_kernel, K * C)
+            uniform_(m.deform_kernel, math.sqrt(3.0 / (K * C)))
         # the JAX package's constant initializers (CenterHead's heatmap
         # bias, the zero DCN offset convs)
         if getattr(m, "weight_fill", None) is not None:

@@ -173,12 +173,14 @@ def train_tool_rank(rank, world, argv):
     return {k: v.clone() for k, v in out["state"].model.state_dict().items()}
 
 
-def eval_tool_rank(rank, world, argv, port, test_dir):
-    """``lidarseg3d_torch.tools.test`` on this rank in the process group
-    torchrun's variables describe (test_torch_port_ddp_entry.py): its
-    detections and result; the device histogram of ``run_eval_device_hist``
-    over this rank's shard; then the tool on the test split, writing its
-    files to ``test_dir``."""
+def eval_tool_rank(rank, world, argv, url, test_dir):
+    """``lidarseg3d_torch.tools.test`` on this rank in a process group
+    whose rank and size come from torchrun's ``RANK`` / ``WORLD_SIZE`` /
+    ``LOCAL_RANK`` and whose rendezvous is ``url``
+    (test_torch_port_ddp_entry.py; a ``file://`` URL, so no port is
+    chosen before it is bound): its detections and result; the device
+    histogram of ``run_eval_device_hist`` over this rank's shard; then the
+    tool on the test split, writing its files to ``test_dir``."""
     from lidarseg3d_torch.apis.eval import run_eval_device_hist
     from lidarseg3d_torch.datasets import SegDataLoader, build_dataset
     from lidarseg3d_torch.parallel import dist
@@ -186,9 +188,8 @@ def eval_tool_rank(rank, world, argv, port, test_dir):
     from lidarseg3d_torch.utils.config import Config
 
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
-                      MASTER_PORT=str(port))
-    assert dist.init_distributed(device="cpu") == (rank, world)
+                      LOCAL_RANK=str(rank))
+    assert dist.init_distributed(url, device="cpu") == (rank, world)
     out = test.main(argv)
     cfg = Config.fromfile(argv[0])
     ds = build_dataset(cfg.data.val.to_dict())

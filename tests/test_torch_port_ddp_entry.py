@@ -8,7 +8,10 @@
   ``train.log`` from rank 0 alone; the two ranks end with bit-identical
   states; one epoch, then a resume for the second, ends bit for bit where
   two epochs straight end;
-- ``tools.test`` started by torchrun's variables, over three frames (odd:
+- ``tools.test`` in a group whose ranks read torchrun's ``RANK`` /
+  ``WORLD_SIZE`` / ``LOCAL_RANK`` over a ``file://`` rendezvous (no port
+  is chosen before it is bound: test_torch_port_dist.py holds
+  ``MASTER_ADDR`` / ``MASTER_PORT``'s URL), over three frames (odd:
   the sampler pads rank 1's shard with frame 0) with a checkpoint of
   seeded random weights and BN statistics (so the labels spread over the
   classes): the ranks' detections split the frames between them, each
@@ -20,7 +23,6 @@
 
 import glob
 import os
-import socket
 
 import numpy as np
 import pytest
@@ -100,12 +102,6 @@ def test_train_resume_continues_bit_for_bit(trained):
     assert moved > 0
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _random_checkpoint(cfg_path, work):
     """A checkpoint of the config's model with seeded random weights and
     BN statistics."""
@@ -156,7 +152,8 @@ def test_eval_on_two_ranks_counts_each_frame_once(setup):
     assert len(want_files) == 3
     test_dir = str(setup["tmp"] / "test_ranks")
     ranks = run_ranks(eval_tool_rank, 2, setup["tmp"] / "eval_ranks", argv,
-                      _free_port(), test_dir, start=False)
+                      rendezvous(setup["tmp"] / "eval_ranks"), test_dir,
+                      start=False)
     got_files = _labels(test_dir)
     assert got_files.keys() == want_files.keys()
     for k, v in want_files.items():

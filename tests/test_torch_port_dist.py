@@ -10,6 +10,11 @@ CPU, gloo ranks spawned by tests/_torch_ddp.py):
   ``allreduce_hist`` (a sum), the differentiable ``all_reduce_sum`` and
   ``gather_rows`` (their backward a sum over the ranks), ``local_rows``,
   ``global_ratio`` and ``gather_to_main``;
+- ``init_distributed`` reads torchrun's variables in one process, no
+  group started: ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` give the rank
+  and size, ``MASTER_ADDR`` / ``MASTER_PORT`` the ``tcp://host:port``
+  rendezvous (port 29500 when ``MASTER_PORT`` is unset), and a flag's
+  coordinator takes the place of the two;
 - the JAX package counts a frame twice when it pads the eval shards:
   its sampler's two shards of three frames both hold frame 0, and its
   ``evaluation`` of each shard's detections, summed as ``allreduce_hist``
@@ -78,6 +83,32 @@ def test_collectives_on_two_ranks(tmp_path):
         assert float(r["ratio"]) == 3.0  # (1 + 2) / max(0 + 1, 1)
     assert r0["gather_main"] == [{"r": 0}, {"r": 1}]
     assert r1["gather_main"] is None
+
+
+@pytest.mark.parametrize("port", ["12345", None])
+def test_torchrun_variables_resolve_to_a_tcp_url(monkeypatch, port):
+    from lidarseg3d_torch.parallel import dist
+
+    calls = []
+    monkeypatch.setattr(dist.tdist, "init_process_group",
+                        lambda *a, **k: calls.append((a, k)))
+    env = dict(RANK="1", WORLD_SIZE="2", LOCAL_RANK="1",
+               MASTER_ADDR="localhost")
+    if port is not None:
+        env["MASTER_PORT"] = port
+    else:
+        monkeypatch.delenv("MASTER_PORT", raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    assert dist.init_distributed(device="cpu") == (1, 2)
+    assert dist.init_distributed("file:///x/rendezvous", device="cpu") == (
+        1, 2)
+    url = f"tcp://localhost:{port or 29500}"
+    assert calls == [
+        (("gloo",), dict(init_method=url, world_size=2, rank=1)),
+        (("gloo",), dict(init_method="file:///x/rendezvous", world_size=2,
+                         rank=1))]
+    assert not dist.active()
 
 
 def test_jax_eval_padding_counts_a_frame_twice(tmp_path, monkeypatch):

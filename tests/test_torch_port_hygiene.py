@@ -5,7 +5,8 @@ reader, head and segmentor, the multi-process runtime, the detection
 stack (CenterPoint's VoxelNet and PointPillars, their pipeline, metrics
 and writers; the two-stage detector, tracking, the C voxelizer's loader,
 the point operations, the FLOP counter, the logger and the single-frame
-tools), and tools included), chip_smoke.py and the profile_*.py scripts import nothing of
+tools; UNetCylinder3D, tools.warm_cache and tools.synthetic_e2e), and
+tools included), chip_smoke.py and the profile_*.py scripts import nothing of
 JAX, Flax, optax, the JAX package or __graft_entry__, and no image
 library (cv2, PIL, imageio: the card's machine has none); the entry
 points run on cuda unless told otherwise; the constants the CPU
@@ -75,8 +76,10 @@ SLICE15_MODULES = ("models/second_stage/bev_extractor.py",
                    "tools/single_inference.py",
                    "tools/simple_inference_waymo.py", "tools/visual.py",
                    "tools/instance_preprocess.py")
+SLICE16_MODULES = ("models/backbones/unet_scn.py", "tools/warm_cache.py",
+                   "tools/synthetic_e2e.py")
 SCRIPTS = ("chip_smoke.py", "profile_build.py", "profile_convs.py",
-           "profile_merge.py")
+           "profile_merge.py", "profile_train_precision.py")
 
 
 def _files():
@@ -101,7 +104,7 @@ def test_port_imports_no_jax():
               | set(TRAIN_ENTRY_MODULES) | set(NUSC_MODULES)
               | set(SEGNET_MODULES) | set(POLAR_MODULES)
               | set(DIST_MODULES) | set(WAYMO_MODULES) | set(DET_MODULES)
-              | set(SLICE15_MODULES))
+              | set(SLICE15_MODULES) | set(SLICE16_MODULES))
     assert wanted <= listed, wanted - listed
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imports(p) if m.split(".")[0] in FORBIDDEN]
@@ -144,6 +147,23 @@ def test_single_frame_tools_default_to_cuda(tool, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             mod.main(argv)
+
+
+@pytest.mark.parametrize("tool,argv", [
+    ("warm_cache", ["configs/tests/mini_semkitti_mseg3d.py"]),
+    ("synthetic_e2e", [])])
+def test_slice16_tools_default_to_cuda(tool, argv):
+    """tools.warm_cache and tools.synthetic_e2e run on cuda unless
+    --device cpu is given, and raise without a card (before they write
+    or build anything)."""
+    import importlib
+
+    mod = importlib.import_module(f"lidarseg3d_torch.tools.{tool}")
+    assert mod.parse_args(argv).device == "cuda"
+    assert mod.parse_args(argv + ["--device", "cpu"]).device == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            mod.main([str(ROOT / a) for a in argv])
 
 
 def test_kernel_wrappers_take_plain_version_only_on_cpu():

@@ -12,6 +12,9 @@ against the JAX package's, exactly:
 - ``sort_by_key=False`` (the first-occurrence order; past ``max_voxels``
   the earliest-seen voxels stay) against JAX's, and ``SegVoxelization``
   with it in both pipelines' train and val modes;
+- ``points_to_voxel`` called without the flag in both packages (the
+  first-occurrence order, the default of both), under and over
+  ``max_voxels``;
 - ``furthest_point_sample``, ``ball_query`` and ``group_points`` against
   JAX's, padded points included."""
 
@@ -62,15 +65,16 @@ def test_c_voxelizer_is_byte_identical(grid):
         c = native_voxelize.points_to_voxel_native(
             pts, vsz, pcr, 5, cap, tvox.compute_grid_size(pcr, vsz))
         _same(c, tvox.points_to_voxel_numpy(pts, vsz, pcr, 5, cap))
-        _same(c, tvox.points_to_voxel(pts, vsz, pcr, 5, cap))
+        _same(c, tvox.points_to_voxel(pts, vsz, pcr, 5, cap,
+                                      sort_by_key=True))
         _same(c, jvox.points_to_voxel(pts, vsz, pcr, 5, cap,
                                       sort_by_key=True))
         assert len(c[0]) == min(cap, nv)
     # float64 points take the numpy path, as in JAX
     p64 = pts.astype(np.float64)
-    _same(tvox.points_to_voxel(p64, vsz, pcr, 5, nv // 2),
+    _same(tvox.points_to_voxel(p64, vsz, pcr, 5, nv // 2, sort_by_key=True),
           jvox.points_to_voxel(p64, vsz, pcr, 5, nv // 2, sort_by_key=True))
-    empty = tvox.points_to_voxel(pts[:0], vsz, pcr, 5, 100)
+    empty = tvox.points_to_voxel(pts[:0], vsz, pcr, 5, 100, sort_by_key=True)
     _same(empty, jvox.points_to_voxel(pts[:0], vsz, pcr, 5, 100,
                                       sort_by_key=True))
 
@@ -84,7 +88,8 @@ def test_c_voxelizer_that_cannot_build_raises(monkeypatch):
     monkeypatch.setattr(cuda_build, "load", fail)
     vsz, pcr = GRIDS["waymo"]
     with pytest.raises(RuntimeError, match="C voxelizer"):
-        tvox.points_to_voxel(_scan(2, pcr, n=100), vsz, pcr, 5, 10)
+        tvox.points_to_voxel(_scan(2, pcr, n=100), vsz, pcr, 5, 10,
+                             sort_by_key=True)
 
 
 @pytest.mark.parametrize("grid", sorted(GRIDS))
@@ -100,6 +105,23 @@ def test_first_seen_order_matches_jax(grid):
     # the first voxel is the first in-grid point's, not the smallest key
     keys = got[1] @ np.array([10 ** 8, 10 ** 4, 1])
     assert (np.diff(keys) < 0).any()
+
+
+@pytest.mark.parametrize("over", [False, True])
+def test_default_order_matches_jax(over):
+    vsz, pcr = GRIDS["semkitti"]
+    pts = _scan(7, pcr)
+    nv = len(jvox.points_to_voxel(pts, vsz, pcr, 5, 10 ** 6)[0])
+    cap = nv // 3 if over else nv + 10
+    got = tvox.points_to_voxel(pts, vsz, pcr, 5, cap)
+    _same(got, jvox.points_to_voxel(pts, vsz, pcr, 5, cap))
+    _same(got, tvox.points_to_voxel(pts, vsz, pcr, 5, cap, sort_by_key=False))
+    assert len(got[0]) == min(cap, nv)
+    if over:  # the earliest-seen voxels stay, not the smallest keys
+        first = tvox.points_to_voxel(pts, vsz, pcr, 5, 10 ** 6)
+        np.testing.assert_array_equal(got[1], first[1][:cap])
+        keys = tvox.points_to_voxel(pts, vsz, pcr, 5, cap, sort_by_key=True)
+        assert set(map(tuple, got[1])) != set(map(tuple, keys[1]))
 
 
 @pytest.mark.parametrize("mode", ["train", "val"])
