@@ -28,6 +28,7 @@ from torch import nn
 from ..parallel import dist, mesh
 from ..solver.optim import AdamState, build_one_cycle_optimizer
 from ..synthetic import example_to_device as _to_device
+from ..utils.spans import span
 
 
 class TrainerHook:
@@ -69,12 +70,13 @@ def example_to_device(batch, device):
     detection batch's ``det_targets`` (a dict of arrays per task) and
     ``gt_boxes_and_cls`` too, which the JAX package's DEVICE_BATCH_KEYS
     leave on the host (so its tools cannot train a detector)."""
-    ex = _to_device({k: batch[k] for k in DEVICE_BATCH_KEYS
-                     + ("gt_boxes_and_cls",) if k in batch}, device)
-    if "det_targets" in batch:
-        ex["det_targets"] = [_to_device(t, device)
-                             for t in batch["det_targets"]]
-    return ex
+    with span("to_device"):
+        ex = _to_device({k: batch[k] for k in DEVICE_BATCH_KEYS
+                         + ("gt_boxes_and_cls",) if k in batch}, device)
+        if "det_targets" in batch:
+            ex["det_targets"] = [_to_device(t, device)
+                                 for t in batch["det_targets"]]
+        return ex
 
 
 @dataclass
@@ -119,19 +121,21 @@ def apply_gradients(state, optimizer):
     still decays it, as the JAX package's optimizer does to every
     parameter behind a ``stop_gradient``; any other parameter without a
     gradient is an error."""
-    named = list(state.model.named_parameters())
-    frozen = set(state.model.frozen_parameters())
-    for n, p in named:
-        if p.grad is None and n in frozen:
-            p.grad = torch.zeros_like(p)
-    missing = [n for n, p in named if p.grad is None]
-    if missing:
-        raise RuntimeError(f"parameters without a gradient: {missing[:5]}")
-    params = [p for _, p in named]
-    norm = optimizer.update(params, [p.grad for p in params],
-                            state.opt_state)
-    state.step += 1
-    return norm
+    with span("optimizer"):
+        named = list(state.model.named_parameters())
+        frozen = set(state.model.frozen_parameters())
+        for n, p in named:
+            if p.grad is None and n in frozen:
+                p.grad = torch.zeros_like(p)
+        missing = [n for n, p in named if p.grad is None]
+        if missing:
+            raise RuntimeError(
+                f"parameters without a gradient: {missing[:5]}")
+        params = [p for _, p in named]
+        norm = optimizer.update(params, [p.grad for p in params],
+                                state.opt_state)
+        state.step += 1
+        return norm
 
 
 def make_train_step(model, optimizer, input_shape):
@@ -143,23 +147,26 @@ def make_train_step(model, optimizer, input_shape):
     def train_step(state, batch):
         if state.model is not model:
             raise ValueError("the train state holds another model")
-        loss, ldict = forward_loss(state, batch, input_shape)
-        loss.backward()
-        mesh.allreduce_gradients(model)
-        ldict = {k: v.detach() for k, v in ldict.items()}
-        ldict["grad_norm"] = apply_gradients(state, optimizer)
-        return state, ldict
+        with span("step"):
+            loss, ldict = forward_loss(state, batch, input_shape)
+            with span("backward"):
+                loss.backward()
+            mesh.allreduce_gradients(model)
+            ldict = {k: v.detach() for k, v in ldict.items()}
+            ldict["grad_norm"] = apply_gradients(state, optimizer)
+            return state, ldict
 
     return train_step
 
 
 def make_eval_step(model, input_shape):
     def eval_step(state, batch):
-        ex = dict(batch)
-        ex["input_shape"] = _grid(input_shape)
-        m = state.model.eval()
-        ret, bat = m(ex)
-        return m.predict(ret, bat)
+        with span("step"):
+            ex = dict(batch)
+            ex["input_shape"] = _grid(input_shape)
+            m = state.model.eval()
+            ret, bat = m(ex)
+            return m.predict(ret, bat)
 
     return eval_step
 
@@ -240,7 +247,8 @@ def _profile_window(total_steps):
 class _StepProfiler:
     """torch.profiler over the global steps ``_profile_window`` names; the
     trace is written to ``profile_dir`` as a Chrome trace when the window
-    ends (or the loop does)."""
+    ends (or the loop does). It shows the steps' layer spans
+    (utils/spans.py)."""
 
     def __init__(self, profile_dir, total_steps, device):
         from torch.profiler import ProfilerActivity, profile

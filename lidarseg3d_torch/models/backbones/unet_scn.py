@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from ...ops import sparse as sp
+from ...utils.spans import span
 from ..registry import BACKBONES
 from ..sparse_modules import (SparseBasicBlock, SparseBasicBlockStack,
                               SparseConvBNReLU)
@@ -70,42 +71,43 @@ class UNetSCN3D(nn.Module):
         (4 subm, 3 strided, 3 inverse); with RETURN_ENCODED_TENSOR also
         the extra conv's structure and strided rulebook (and, when
         gradients are recorded, its inverse)."""
-        V = s1.capacity
-        caps, sites = self.caps, self.sites
-        down = sp.downsample_structure
-        t1 = sp.dense_table(s1)
-        b = dict(s1=s1, t1=t1, subm1=sp.build_subm_rulebook(s1, table=t1))
-        s2 = down(s1, 2, capacity=max(1, int(V * caps[0])), padding=1,
-                  rule=sites)
-        b["down2"] = sp.build_strided_rulebook(s1, s2, 3, 2, 1, table=t1)
-        t2 = sp.dense_table(s2)
-        b["subm2"] = sp.build_subm_rulebook(s2, table=t2)
-        b["inv2"] = sp.build_inverse_rulebook(s2, s1, 3, 2, 1, table=t2)
-        s3 = down(s2, 2, capacity=max(1, int(V * caps[1])), padding=1,
-                  rule=sites)
-        t3 = sp.dense_table(s3)
-        b["down3"] = sp.build_strided_rulebook(s2, s3, 3, 2, 1, table=t2)
-        b["subm3"] = sp.build_subm_rulebook(s3, table=t3)
-        b["inv3"] = sp.build_inverse_rulebook(s3, s2, 3, 2, 1, table=t3)
-        s4 = down(s3, 2, capacity=max(1, int(V * caps[2])),
-                  padding=(0, 1, 1), rule=sites)
-        t4 = sp.dense_table(s4)
-        b["down4"] = sp.build_strided_rulebook(s3, s4, 3, 2, (0, 1, 1),
-                                               table=t3)
-        b["subm4"] = sp.build_subm_rulebook(s4, table=t4)
-        b["inv4"] = sp.build_inverse_rulebook(s4, s3, 3, 2, (0, 1, 1),
-                                              table=t4)
-        b.update(s2=s2, s3=s3, s4=s4, t2=t2, t3=t3, t4=t4)
-        if self.encoded:
-            enc = dict(kernel_size=(3, 1, 1), stride=(2, 1, 1),
-                       padding=self.last_pad)
-            b["s_enc"] = down(s4, (2, 1, 1), capacity=s4.capacity)
-            b["down_enc"] = sp.build_strided_rulebook(s4, b["s_enc"],
-                                                      table=t4, **enc)
-            if torch.is_grad_enabled():  # only the conv's backward reads it
-                b["inv_enc"] = sp.build_inverse_rulebook(b["s_enc"], s4,
-                                                         **enc)
-        return b
+        with span("rulebooks"):
+            V = s1.capacity
+            caps, sites = self.caps, self.sites
+            down = sp.downsample_structure
+            t1 = sp.dense_table(s1)
+            b = dict(s1=s1, t1=t1, subm1=sp.build_subm_rulebook(s1, table=t1))
+            s2 = down(s1, 2, capacity=max(1, int(V * caps[0])), padding=1,
+                      rule=sites)
+            b["down2"] = sp.build_strided_rulebook(s1, s2, 3, 2, 1, table=t1)
+            t2 = sp.dense_table(s2)
+            b["subm2"] = sp.build_subm_rulebook(s2, table=t2)
+            b["inv2"] = sp.build_inverse_rulebook(s2, s1, 3, 2, 1, table=t2)
+            s3 = down(s2, 2, capacity=max(1, int(V * caps[1])), padding=1,
+                      rule=sites)
+            t3 = sp.dense_table(s3)
+            b["down3"] = sp.build_strided_rulebook(s2, s3, 3, 2, 1, table=t2)
+            b["subm3"] = sp.build_subm_rulebook(s3, table=t3)
+            b["inv3"] = sp.build_inverse_rulebook(s3, s2, 3, 2, 1, table=t3)
+            s4 = down(s3, 2, capacity=max(1, int(V * caps[2])),
+                      padding=(0, 1, 1), rule=sites)
+            t4 = sp.dense_table(s4)
+            b["down4"] = sp.build_strided_rulebook(s3, s4, 3, 2, (0, 1, 1),
+                                                   table=t3)
+            b["subm4"] = sp.build_subm_rulebook(s4, table=t4)
+            b["inv4"] = sp.build_inverse_rulebook(s4, s3, 3, 2, (0, 1, 1),
+                                                  table=t4)
+            b.update(s2=s2, s3=s3, s4=s4, t2=t2, t3=t3, t4=t4)
+            if self.encoded:
+                enc = dict(kernel_size=(3, 1, 1), stride=(2, 1, 1),
+                           padding=self.last_pad)
+                b["s_enc"] = down(s4, (2, 1, 1), capacity=s4.capacity)
+                b["down_enc"] = sp.build_strided_rulebook(s4, b["s_enc"],
+                                                          table=t4, **enc)
+                if torch.is_grad_enabled():  # only its backward reads it
+                    b["inv_enc"] = sp.build_inverse_rulebook(b["s_enc"], s4,
+                                                             **enc)
+            return b
 
     def convs(self, st_in: sp.SparseTensor, b):
         """The 36 sparse convs on the prebuilt rulebooks ``b``. Strided and
@@ -168,7 +170,8 @@ class UNetSCN3D(nn.Module):
         )
 
     def forward(self, st_in: sp.SparseTensor):
-        return self.convs(st_in, self.structures(st_in.structure))
+        with span("backbone"):
+            return self.convs(st_in, self.structures(st_in.structure))
 
 
 @BACKBONES.register_module

@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from ...ops import sparse as sp
+from ...utils.spans import span
 from .. import builder
 from ..registry import DETECTORS
 
@@ -36,25 +37,31 @@ class SegMSeg3DNet(nn.Module):
 
     def image_branch(self, example):
         """images [B, ncam, H, W, 3] -> FCN head outputs (NHWC)."""
-        images = example["images"]
-        B, ncam = images.shape[:2]
-        imgs = images.reshape(B * ncam, *images.shape[2:]).permute(0, 3, 1, 2)
-        return self.img_head_mod(self.img_backbone_mod(imgs), batch_size=B)
+        with span("image_branch"):
+            images = example["images"]
+            B, ncam = images.shape[:2]
+            imgs = images.reshape(B * ncam,
+                                  *images.shape[2:]).permute(0, 3, 1, 2)
+            return self.img_head_mod(self.img_backbone_mod(imgs),
+                                     batch_size=B)
 
     def lidar_input(self, example):
         """VFE features on the input structure."""
-        feats = self.reader_mod(example["voxels"], example["num_points"],
-                                example["coordinates"])
-        struct = sp.build_structure(example["coordinates"],
-                                    example["num_voxels"],
-                                    example["input_shape"])
+        with span("reader"):
+            feats = self.reader_mod(example["voxels"], example["num_points"],
+                                    example["coordinates"])
+        with span("rulebooks"):
+            struct = sp.build_structure(example["coordinates"],
+                                        example["num_voxels"],
+                                        example["input_shape"])
         return sp.SparseTensor(structure=struct, features=feats)
 
     def head(self, example, bb_out, img_out, generator=None):
         batch = dict(example)
         batch.update(bb_out)
         batch.update(img_out)
-        ret = self.point_head_mod(batch, generator=generator)
+        with span("head"):
+            ret = self.point_head_mod(batch, generator=generator)
         ret["image_logits"] = img_out["image_logits"]
         return ret, batch
 
@@ -77,14 +84,16 @@ class SegMSeg3DNet(nn.Module):
     def loss(self, ret, batch):
         """Point-head losses + image-head losses -> (total, dict of every
         term and "loss")."""
-        point_loss, ldict = self.point_head_mod.get_loss(ret, batch)
-        img_loss, img_ldict = self.img_head_mod.get_loss(ret, batch)
-        ldict.update(img_ldict)
-        total = point_loss + img_loss
-        ldict["loss"] = total
-        return total, ldict
+        with span("head"):
+            point_loss, ldict = self.point_head_mod.get_loss(ret, batch)
+            img_loss, img_ldict = self.img_head_mod.get_loss(ret, batch)
+            ldict.update(img_ldict)
+            total = point_loss + img_loss
+            ldict["loss"] = total
+            return total, ldict
 
     @torch.inference_mode()
     def predict(self, ret, batch, test_cfg=None):
-        return self.point_head_mod.predict(ret, batch,
-                                           test_cfg or self.test_cfg)
+        with span("head"):
+            return self.point_head_mod.predict(ret, batch,
+                                               test_cfg or self.test_cfg)

@@ -10,6 +10,7 @@ import torch
 from torch import nn
 
 from ...ops import sparse as sp
+from ...utils.spans import span
 from .. import builder
 from ..registry import DETECTORS
 
@@ -31,11 +32,13 @@ class SegNet(nn.Module):
 
     def lidar_input(self, example):
         """VFE features on the input structure."""
-        feats = self.reader_mod(example["voxels"], example["num_points"],
-                                example["coordinates"])
-        struct = sp.build_structure(example["coordinates"],
-                                    example["num_voxels"],
-                                    example["input_shape"])
+        with span("reader"):
+            feats = self.reader_mod(example["voxels"], example["num_points"],
+                                    example["coordinates"])
+        with span("rulebooks"):
+            struct = sp.build_structure(example["coordinates"],
+                                        example["num_voxels"],
+                                        example["input_shape"])
         return sp.SparseTensor(structure=struct, features=feats)
 
     def forward(self, example, generator=None):
@@ -45,18 +48,22 @@ class SegNet(nn.Module):
         with torch.inference_mode(not self.training):
             batch = dict(example)
             batch.update(self.backbone_mod(self.lidar_input(example)))
-            return self.point_head_mod(batch, generator=generator), batch
+            with span("head"):
+                ret = self.point_head_mod(batch, generator=generator)
+            return ret, batch
 
     def frozen_parameters(self):
         """No parameter of a SegNet is frozen."""
         return []
 
     def loss(self, ret, batch):
-        loss, ldict = self.point_head_mod.get_loss(ret, batch)
-        ldict["loss"] = loss
-        return loss, ldict
+        with span("head"):
+            loss, ldict = self.point_head_mod.get_loss(ret, batch)
+            ldict["loss"] = loss
+            return loss, ldict
 
     @torch.inference_mode()
     def predict(self, ret, batch, test_cfg=None):
-        return self.point_head_mod.predict(ret, batch,
-                                           test_cfg or self.test_cfg)
+        with span("head"):
+            return self.point_head_mod.predict(ret, batch,
+                                               test_cfg or self.test_cfg)

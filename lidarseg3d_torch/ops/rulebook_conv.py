@@ -23,6 +23,7 @@ import ctypes
 
 import torch
 
+from ..utils.spans import span
 from . import cuda_build
 
 _SIG = {"rulebook_conv": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
@@ -253,21 +254,23 @@ class RulebookConvFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gout):
-        feat, w, rb, rb_t = ctx.saved_tensors
-        K, B, Vout = rb.shape
-        g_rows = gout.reshape(B * Vout, -1).contiguous()
-        dfeat = dw = None
-        if ctx.needs_input_grad[0]:
-            flip = rb_t is None
-            if flip:
-                if B * Vout != feat.shape[0] - 1:
-                    raise ValueError("a rulebook without its transpose "
-                                     "must be submanifold (Vin == Vout)")
-                rb_t = rb
-            # the kernel mirrors the taps and reads w[k]^T in place, takes
-            # the miss index B*Vout as zeros, and writes dfeat's zero row
-            dfeat = rulebook_conv(g_rows, rb_t, w, flip_taps=flip, w_t=True,
-                                  miss=B * Vout, zero_row=True)
-        if ctx.needs_input_grad[1]:
-            dw = rulebook_conv_dw(feat, rb, g_rows).to(w.dtype)
-        return dfeat, dw, None, None
+        with span("sparse_conv"):
+            feat, w, rb, rb_t = ctx.saved_tensors
+            K, B, Vout = rb.shape
+            g_rows = gout.reshape(B * Vout, -1).contiguous()
+            dfeat = dw = None
+            if ctx.needs_input_grad[0]:
+                flip = rb_t is None
+                if flip:
+                    if B * Vout != feat.shape[0] - 1:
+                        raise ValueError("a rulebook without its transpose "
+                                         "must be submanifold (Vin == Vout)")
+                    rb_t = rb
+                # the kernel mirrors the taps and reads w[k]^T in place,
+                # takes the miss index B*Vout as zeros, and writes dfeat's
+                # zero row
+                dfeat = rulebook_conv(g_rows, rb_t, w, flip_taps=flip,
+                                      w_t=True, miss=B * Vout, zero_row=True)
+            if ctx.needs_input_grad[1]:
+                dw = rulebook_conv_dw(feat, rb, g_rows).to(w.dtype)
+            return dfeat, dw, None, None

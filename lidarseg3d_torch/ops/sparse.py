@@ -28,6 +28,7 @@ from . import coords as coord_ops
 from .merge_lookup import merge_cells
 from .rank_lookup import (RulebookSpec, gather_cells, rank_bits,
                           rulebook_cells, rulebook_decode, rulebook_rank)
+from ..utils.spans import span
 from .rulebook_conv import RulebookConvFn
 
 
@@ -348,9 +349,10 @@ def build_inverse_rulebook(s_low: SparseStructure,
 
 
 def _conv(features, weights, rulebook, rulebook_t=None):
-    return RulebookConvFn.apply(
-        flat_features(features), weights, rulebook.contiguous(),
-        None if rulebook_t is None else rulebook_t.contiguous())
+    with span("sparse_conv"):
+        return RulebookConvFn.apply(
+            flat_features(features), weights, rulebook.contiguous(),
+            None if rulebook_t is None else rulebook_t.contiguous())
 
 
 def subm_conv(st: SparseTensor, weights, rulebook):
